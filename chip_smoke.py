@@ -1,0 +1,556 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+1. Prints the card's name and power limit (nvidia-smi) and builds the hand
+   kernels from ``cnns_slfp_quantization_tpu_torch/csrc`` (one nvcc each,
+   all at once).
+2. Kernel phases at the shapes SLFP8 ResNet-50 gives each kernel at batch
+   64: every kernel against its plain PyTorch version on the same inputs on
+   the card.  K1 (act quantize) and K3 (epilogue) must be bit-equal.  K2
+   (fused 1x1 GEMM) sums in another order: raw bf16 and f32 outputs within
+   one ulp of their type plus the reordering bound K * 2**-22 * (sum of the
+   terms' magnitudes), which is one ulp unless the epilogue cancels to near
+   zero; quantized outputs within one step of the quantizer's output in at
+   most 0.1% of elements.  Times are medians of 20 runs of 5 back-to-back
+   calls between CUDA events.
+3. Slice phase: ``InferenceEngine("resnet", qbit=8, batch_size=64)`` serves
+   requests of 64, 64 and 17 images with the launch counts reset just before
+   and read just after (K1 3, K2 32, K3 21 per forward); then the same
+   weights on the CPU (cosine > 0.995, same top-1), packed uint8 weights
+   (bit-equal logits), ``policy={"conv3": "torch"}`` (K3 dual 12 times per
+   forward, same bar), and images/s at batch 64 and 256 against the fp32
+   module path.
+
+The line before the last is one JSON object with, for each kernel, its
+launches over the main path's run of three requests (``launches``, three
+forwards) and per forward (``launches_per_forward``), and, per forward at
+batch 64 under the default policy, its time, its plain version's time, the
+matching PyTorch call's time where one exists, and its bound: the larger of
+the bytes it must move over 3.35 TB/s and its operations over the card's
+peak for their type.  The last line is
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero first,
+and so does a run without a CUDA device or outside the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+REPO = pathlib.Path(__file__).resolve().parent
+PKG = "cnns_slfp_quantization_tpu_torch"
+B = 64
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12            # dense bf16 tensor cores
+F32_OPS = 67e12                # float32 outside the tensor cores
+# integer/float operations per element of the elementwise kernels, counted
+# from csrc/slfp.cuh (quantize ~25, epilogue affine+residual+ReLU+quantize
+# ~35); both are far below the bytes bound
+K1_OPS, K3_OPS = 25, 35
+
+failures: list = []
+
+
+def phase(name):
+    def wrap(fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **k)
+                print(f"[{name}] ok in {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+                return out
+            except Exception:  # report every phase, then exit non-zero
+                failures.append(name)
+                print(f"[{name}] FAILED\n{traceback.format_exc()}",
+                      flush=True)
+                return None
+        return run
+    return wrap
+
+
+def bound_ms(nbytes, ops, peak):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+class Row:
+    """Per-forward totals of one kernel: sum over its main-path shapes of
+    (value at that shape) x (launches of that shape per forward)."""
+
+    def __init__(self, name, source, replaces):
+        self.d = dict(name=name, route="cuda", source=source,
+                      replaces=replaces, launches=0, launches_per_forward=0,
+                      max_abs_err=0.0, ms=0.0,
+                      plain_ms=0.0, bound_ms=0.0, bound_by="bytes",
+                      library_ms=None)
+        self._t_bytes = self._t_ops = 0.0
+
+    def add(self, per_fwd, ms, plain_ms, nbytes, ops, peak, lib_ms=None):
+        self.d["ms"] += per_fwd * ms
+        self.d["plain_ms"] += per_fwd * plain_ms
+        self._t_bytes += per_fwd * nbytes / HBM_BYTES_PER_S
+        self._t_ops += per_fwd * ops / peak
+        self.d["bound_ms"] += per_fwd * bound_ms(nbytes, ops, peak)[0]
+        self.d["bound_by"] = ("bytes" if self._t_bytes >= self._t_ops
+                              else "operations")
+        if lib_ms is not None:
+            self.d["library_ms"] = (self.d["library_ms"] or 0.0) + per_fwd * lib_ms
+
+    def err(self, e):
+        self.d["max_abs_err"] = max(self.d["max_abs_err"], float(e))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (REPO / PKG / "csrc").is_dir():
+        print(f"chip_smoke: {PKG}/ not found beside this script; run it from "
+              f"a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+
+    from cnns_slfp_quantization_tpu_torch import calib, kernels
+    from cnns_slfp_quantization_tpu_torch.kernels import _build
+    from cnns_slfp_quantization_tpu_torch.kernels import epilogue as k3
+    from cnns_slfp_quantization_tpu_torch.kernels import qmm as k2
+    from cnns_slfp_quantization_tpu_torch.kernels import quantize as k1
+    from cnns_slfp_quantization_tpu_torch.ops import sfp
+    from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
+    from cnns_slfp_quantization_tpu_torch.utils.profiling import (
+        median_ms, throughput)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "?"
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda")
+    rc = [sfp.recip_of(a) for a in calib.load_scales("resnet50_imgnet").ka]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    t0 = time.perf_counter()
+    build_s = _build.build()
+    for name in _build.SOURCES:
+        _build.load(name)
+    print(f"build: {build_s:.1f} s nvcc ({time.perf_counter() - t0:.1f} s "
+          f"with loading) for {', '.join(_build.SOURCES)}", flush=True)
+
+    rows = {
+        "k1": Row("act_quantize", f"{PKG}/csrc/quantize.cu",
+                  "cnns_slfp_quantization_tpu/kernels/quantize.py:83"),
+        "k2": Row("qmm_fused", f"{PKG}/csrc/qmm.cu",
+                  "cnns_slfp_quantization_tpu/kernels/qmm.py:93"),
+        "k3": Row("bn_epilogue", f"{PKG}/csrc/epilogue.cu",
+                  "cnns_slfp_quantization_tpu/kernels/epilogue.py:45"),
+    }
+
+    def same_bits(a, b):
+        ai = a.view(torch.int16) if a.dtype == torch.bfloat16 else a.view(torch.int32)
+        bi = b.view(torch.int16) if b.dtype == torch.bfloat16 else b.view(torch.int32)
+        return bool(torch.equal(ai, bi))
+
+    # ------------------------------------------------------------------ K1
+    @phase("K1 act_quantize")
+    def k1_phase():
+        cases = [  # (shape, dtype, recip, nonneg): the three main-path sites
+            ((B, 224, 224, 3), torch.float32, rc[0], False),   # stem input
+            ((B, 56, 56, 64), torch.bfloat16, rc[1], True),    # stage 0
+            ((B, 2048), torch.float32, rc[53], True),           # head
+        ]
+        for shape, dt, r, nonneg in cases:
+            x = randn(*shape, scale=1.0 / r * 1.5)
+            if nonneg:
+                x = x.abs()
+            x = x.to(dt)
+            got = k1.act_quantize(x, r, nonneg=nonneg)
+            want = k1.act_quantize_plain(x, r, nonneg=nonneg)
+            torch.cuda.synchronize()
+            assert same_bits(got, want), f"K1 {shape} not bit-equal"
+            ms = median_ms(lambda: k1.act_quantize(x, r, nonneg=nonneg))
+            pms = median_ms(lambda: k1.act_quantize_plain(x, r, nonneg=nonneg))
+            n = x.numel()
+            nbytes = n * (x.element_size() + 2)
+            rows["k1"].add(1, ms, pms, nbytes, n * K1_OPS, F32_OPS)
+            print(f"  K1 {shape} {dt}: {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bound_ms(nbytes, n * K1_OPS, F32_OPS)[0]:.4f} ms",
+                  flush=True)
+        # the Pallas kernel's own form (f32 -> f32, bf16 -> bf16)
+        for dt in (torch.float32, torch.bfloat16):
+            x = randn(B, 28, 28, 128, scale=6.0).to(dt)
+            assert same_bits(k1.slfp34_act_quantize(x),
+                             k1.slfp34_act_quantize_plain(x)), dt
+        # scalar tail and unaligned path
+        x = randn(1000003, scale=5.0)[1:]
+        assert same_bits(k1.act_quantize(x, rc[3], nonneg=False),
+                         k1.act_quantize_plain(x, rc[3], nonneg=False))
+
+    # ------------------------------------------------------------------ K2
+    def k2_sites():
+        """(M, K, N, flags, launches per forward) of every 1x1 conv."""
+        out = []
+        res = 56
+        in_ch = 64
+        for s, (planes, blocks, stride, _) in enumerate(
+                [(64, 3, 1, 1), (128, 4, 2, 11), (256, 6, 2, 24),
+                 (512, 3, 2, 43)]):
+            m_in = B * res * res
+            res //= stride
+            m = B * res * res
+            out.append((m_in, in_ch, planes, "c1_b0", 1))
+            out.append((m, planes * 4, planes, "c1_mid", blocks - 1))
+            out.append((m, planes, planes * 4, "c3_mid", blocks - 1))
+            out.append((m, planes, planes * 4,
+                        "c3_end" if s < 3 else "c3_last", 1))
+            in_ch = planes * 4
+        return out
+
+    flag_sets = {
+        "c1_b0": dict(relu=True, quant_out_recip=rc[2]),
+        "c1_mid": dict(relu=True, quant_in_recip=rc[4], quant_out_recip=rc[5]),
+        "c3_mid": dict(relu=True, residual=True),
+        "c3_end": dict(relu=True, residual=True, quant_out_recip=rc[12]),
+        "c3_last": dict(relu=True, residual=True),
+    }
+
+    # every bf16 value the SLFP<3,4> activation quantizer emits (0, the
+    # pseudo-zero, 0.125 and up), from the quantizer fed every finite
+    # non-negative bf16 value: its linear pre-round skips some codebook
+    # entries, so the codebook itself would count one step as two
+    emitted = sfp.act_bf16_bits(
+        torch.arange(0x7F80, dtype=torch.int32, device=dev).to(
+            torch.int16).view(torch.bfloat16), 1.0, 8, True).float().unique()
+
+    def k2_check(got, want, quantized, label, mag, k):
+        """K2 sums its K products in another order than the plain version.
+        Each order rounds at most K times, each by at most 2**-23 of the
+        running sum (tensor cores may truncate), which never exceeds ``mag``,
+        the per-element sum of the magnitudes of all terms; so the f32 values
+        before the output rounding differ by at most delta = K * 2**-22 *
+        mag, and the outputs by delta plus one ulp of the output type.  Where
+        the sum does not cancel, that is one ulp; where it cancels to near
+        zero, one ulp of the result is below what any reordering can hold."""
+        g, w = got.float(), want.float()
+        err = float((g - w).abs().max())
+        if quantized:
+            # one index step is one step of the quantizer's output
+            gi = torch.searchsorted(emitted, g.abs().contiguous()) * torch.sign(g)
+            wi = torch.searchsorted(emitted, w.abs().contiguous()) * torch.sign(w)
+            step = (gi - wi).abs()
+            frac = float((step > 0).float().mean())
+            if float(step.max()) > 1 or frac > 1e-3:
+                i = int(step.flatten().argmax())
+                raise AssertionError(
+                    f"{label}: {frac:.2e} of elements differ, max step "
+                    f"{float(step.max())}; first: got "
+                    f"{float(g.flatten()[i])}, want {float(w.flatten()[i])}")
+        else:
+            delta = k * 2.0**-22 * mag
+            v = w.abs() + delta
+            _, e = torch.frexp(v)  # v = f * 2**e, f in [0.5, 1)
+            p = 7 if got.dtype == torch.bfloat16 else 23
+            ulp = torch.ldexp(torch.ones_like(v), e - 1 - p) * (v > 0)
+            bad = (g - w).abs() > delta + ulp
+            if bool(bad.any()):
+                i = int(bad.flatten().nonzero()[0])
+                raise AssertionError(
+                    f"{label}: {int(bad.sum())} elements beyond the bound; "
+                    f"first: got {float(g.flatten()[i])}, want "
+                    f"{float(w.flatten()[i])}, mag {float(mag.flatten()[i])}")
+        return err
+
+    def k2_mag(xq, wv, s, t, res):
+        """Per-element sum of the magnitudes of the terms of K2's output:
+        |s| * (|x| @ |w|) + |t| (+ |residual|), from bf16 operands."""
+        mag = (xq.float().abs() @ wv.float().abs()) * s.abs() + t.abs()
+        return mag if res is None else mag + res.float().abs()
+
+    @phase("K2 qmm_fused")
+    def k2_phase():
+        for m, k, n, site, per_fwd in k2_sites():
+            flags = dict(flag_sets[site])
+            res = randn(m, n, scale=2.0).to(torch.bfloat16) \
+                if flags.pop("residual", False) else None
+            raw_in = "quant_in_recip" in flags
+            x = randn(m, k, scale=3.0).abs().to(torch.bfloat16)
+            if not raw_in:  # a quantized input, as the producer emits it
+                x = k1.act_quantize_plain(x, 1.0)
+            wq = sfp.quantize_weight(randn(k, n, scale=4.0), 8)
+            s = torch.rand(n, device=dev, generator=gen) * 0.01 + 1e-3
+            t = randn(n, scale=0.5)
+            quantized = "quant_out_recip" in flags
+            mag = None if quantized else k2_mag(
+                k1.act_quantize_plain(x, flags["quant_in_recip"]) if raw_in
+                else x, wq.to(torch.bfloat16), s, t, res)
+            for w in (wq.to(torch.bfloat16), sfp.pack_slfp34(wq)):
+                args = (x, w, s, t)
+                got = k2.qmm_fused(*args, residual=res, **flags)
+                want = k2.qmm_plain(*args, residual=res, **flags)
+                torch.cuda.synchronize()
+                label = f"K2 {site} M={m} K={k} N={n} {w.dtype}"
+                rows["k2"].err(k2_check(got, want, quantized, label, mag, k))
+                if w.dtype != torch.bfloat16:
+                    continue
+                ms = median_ms(lambda: k2.qmm_fused(*args, residual=res,
+                                                    **flags))
+                pms = median_ms(lambda: k2.qmm_plain(*args, residual=res,
+                                                     **flags))
+                wb = w
+                lms = median_ms(lambda: torch.matmul(x, wb))
+                nbytes = (m * k * 2 + k * n * 2 + n * 8 + m * n * 2
+                          + (m * n * 2 if res is not None else 0))
+                ops = 2 * m * k * n
+                rows["k2"].add(per_fwd, ms, pms, nbytes, ops, BF16_FLOPS,
+                               lms)
+                bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
+                print(f"  {label} x{per_fwd}: {ms:.4f} ms "
+                      f"({ops / ms / 1e9:.1f} TFLOP/s), plain {pms:.4f}, "
+                      f"torch.matmul {lms:.4f}, bound {bms:.4f} ({by})",
+                      flush=True)
+        # f32 output and ragged M / K, N multiples of 8
+        x = randn(1000, 136, scale=3.0).abs().to(torch.bfloat16)
+        wq = sfp.quantize_weight(randn(136, 72, scale=4.0), 8)
+        s = torch.rand(72, device=dev, generator=gen) * 0.01
+        t = randn(72)
+        mag = k2_mag(k1.act_quantize_plain(x, rc[4]), wq.to(torch.bfloat16),
+                     s, t, None)
+        for od in (torch.float32, torch.bfloat16):
+            got = k2.qmm_fused(x, wq.to(torch.bfloat16), s, t,
+                               quant_in_recip=rc[4], out_dtype=od)
+            want = k2.qmm_plain(x, wq.to(torch.bfloat16), s, t,
+                                quant_in_recip=rc[4], out_dtype=od)
+            rows["k2"].err(k2_check(got, want, False, f"K2 ragged {od}", mag,
+                                    136))
+
+    # ------------------------------------------------------------------ K3
+    def k3_sites():
+        """(shape, form, launches per forward) of the epilogue sites."""
+        out = [((B, 112, 112, 64), "raw_relu", 1)]
+        res, in_stride = 56, [1, 2, 2, 2]
+        for s, (planes, blocks) in enumerate([(64, 3), (128, 4), (256, 6),
+                                              (512, 3)]):
+            res //= in_stride[s]
+            out.append(((B, res, res, planes * 4), "raw_norelu", 1))
+            out.append(((B, res, res, planes), "q", blocks))
+            out.append(((B, res, res, planes * 4), "dual", 0))
+            if s < 3:
+                out.append(((B, res, res, planes * 4), "q_res", 0))
+        return out
+
+    forms = {
+        "raw_relu": dict(relu=True),
+        "raw_norelu": dict(relu=False),
+        "q": dict(relu=True, emit_raw=False, quant_recip=rc[3]),
+        "dual": dict(relu=True, quant_recip=rc[4], identity=True),
+        "q_res": dict(relu=True, emit_raw=False, quant_recip=rc[11],
+                      identity=True),
+    }
+
+    @phase("K3 bn_epilogue")
+    def k3_phase():
+        for shape, form, per_fwd in k3_sites():
+            kw = dict(forms[form])
+            c = shape[-1]
+            y = randn(*shape, scale=40.0)
+            ident = (randn(*shape, scale=2.0).to(torch.bfloat16)
+                     if kw.pop("identity", False) else None)
+            s = torch.rand(c, device=dev, generator=gen) * 0.02 + 1e-3
+            t = randn(c, scale=0.5)
+            got = k3.bn_epilogue(y, s, t, identity=ident, **kw)
+            want = k3.bn_epilogue_plain(y, s, t, identity=ident, **kw)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if g is not None:
+                    assert same_bits(g, w), f"K3 {form} {shape} not bit-equal"
+            ms = median_ms(lambda: k3.bn_epilogue(y, s, t, identity=ident,
+                                                  **kw))
+            pms = median_ms(lambda: k3.bn_epilogue_plain(
+                y, s, t, identity=ident, **kw))
+            n = y.numel()
+            outs = sum(1 for g in got if g is not None)
+            nbytes = n * (4 + (2 if ident is not None else 0) + 2 * outs) \
+                + c * 8
+            if per_fwd:
+                rows["k3"].add(per_fwd, ms, pms, nbytes, n * K3_OPS, F32_OPS)
+            print(f"  K3 {form} {shape} x{per_fwd}: {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms, bound "
+                  f"{bound_ms(nbytes, n * K3_OPS, F32_OPS)[0]:.4f} ms",
+                  flush=True)
+        # odd channel count: the scalar path
+        y = randn(7, 13, 20)
+        s, t = torch.rand(20, device=dev) + 0.1, randn(20)
+        for g, w in zip(k3.bn_epilogue(y, s, t, quant_recip=rc[2]),
+                        k3.bn_epilogue_plain(y, s, t, quant_recip=rc[2])):
+            assert same_bits(g, w), "K3 scalar path"
+
+    # ---------------------------------------------------------------- slice
+    @phase("slice: InferenceEngine resnet SLFP8")
+    def slice_phase():
+        def cos(a, b):
+            a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
+            return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+        rng = np.random.default_rng(0)
+        requests = [rng.standard_normal((n, 224, 224, 3)).astype(np.float32)
+                    for n in (64, 64, 17)]
+        t0 = time.perf_counter()
+        eng = InferenceEngine("resnet", qbit=8, batch_size=B, image_size=224,
+                              seed=0)
+        print(f"  engine built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        eng.predict(requests[0][:1])          # warm-up: cuDNN plans
+        torch.cuda.synchronize()
+
+        kernels.reset_launches()              # the main path's run
+        logits = [eng.predict(r) for r in requests]
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        fwd = len(requests)                   # one forward per request
+        print(f"  launches over {fwd} requests: {counts}", flush=True)
+        for key, name, per_fwd in (("k1", "act_quantize", 3),
+                                   ("k2", "qmm_fused", 32),
+                                   ("k3", "bn_epilogue", 21)):
+            assert counts[name] == fwd * per_fwd, counts
+            rows[key].d["launches"] = counts[name]
+            rows[key].d["launches_per_forward"] = counts[name] // fwd
+        assert counts["bn_epilogue_dual"] == 0, counts
+        for r, lg in zip(requests, logits):
+            assert lg.shape == (r.shape[0], 1000) and np.isfinite(lg).all()
+        print(f"  logits[0, :4] = {logits[0][0, :4]}, top-1 of request 3: "
+              f"{np.argmax(logits[2], -1)[:8]}", flush=True)
+
+        t0 = time.perf_counter()
+        cpu = InferenceEngine("resnet", qbit=8, batch_size=2, image_size=224,
+                              seed=0, device="cpu")
+        got = cpu.predict(requests[0][:2])
+        c = cos(got, logits[0][:2])
+        print(f"  CPU plain path on 2 images: cos {c:.6f}, top-1 "
+              f"{np.argmax(got, -1)} vs {np.argmax(logits[0][:2], -1)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        assert c > 0.995
+        assert (np.argmax(got, -1) == np.argmax(logits[0][:2], -1)).all()
+
+        packed = InferenceEngine("resnet", qbit=8, batch_size=B,
+                                 image_size=224, seed=0, pack_weights=True)
+        lp = packed.predict(requests[0])
+        assert np.array_equal(lp.view(np.int32), logits[0].view(np.int32)), \
+            "packed logits differ from float-frozen"
+        print("  packed uint8 weights: logits bit-equal", flush=True)
+
+        eng3 = InferenceEngine("resnet", qbit=8, batch_size=B,
+                               image_size=224, seed=0,
+                               policy={"conv3": "torch"})
+        eng3.predict(requests[0][:1])
+        kernels.reset_launches()
+        l3 = eng3.predict(requests[0])
+        counts3 = kernels.launches()
+        assert counts3["bn_epilogue_dual"] == 12, counts3
+        assert counts3["qmm_fused"] == 16, counts3
+        c3 = cos(l3, logits[0])
+        print(f"  policy conv3=torch: {counts3}, cos {c3:.6f}", flush=True)
+        assert c3 > 0.995
+        assert (np.argmax(l3, -1) == np.argmax(logits[0], -1)).all()
+
+        fp32 = InferenceEngine("resnet", qbit=32, batch_size=B,
+                               image_size=224, seed=0)
+        lf = fp32.predict(requests[0][:8])
+        assert np.isfinite(lf).all()
+        tp = {}
+        for bs in (64, 256):
+            x = torch.from_numpy(rng.standard_normal(
+                (bs, 224, 224, 3)).astype(np.float32)).to(dev)
+            tp[f"slfp8_b{bs}"] = throughput(lambda: eng.forward(x), bs)
+            tp[f"fp32_b{bs}"] = throughput(lambda: fp32.forward(x), bs)
+        for key, val in tp.items():
+            print(f"  throughput {key}: {val:.1f} images/s", flush=True)
+        print(f"  SLFP8 / fp32: b64 {tp['slfp8_b64'] / tp['fp32_b64']:.3f}, "
+              f"b256 {tp['slfp8_b256'] / tp['fp32_b256']:.3f}", flush=True)
+        return eng
+
+    def where_the_time_goes(eng, fwd=3):
+        """Device time per forward at batch 64 by kernel, from
+        torch.profiler, and the share of the wall time with no kernel
+        running.  A measurement, not a check: a profiler that shows no
+        device time is reported as such."""
+        from torch.profiler import ProfilerActivity, profile
+
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (B, 224, 224, 3)).astype(np.float32)).to(dev)
+        eng.forward(x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(fwd):
+                eng.forward(x)
+            end.record()
+            torch.cuda.synchronize()
+        wall = start.elapsed_time(end) / fwd
+        from torch.autograd import DeviceType
+
+        # kernel events only: operator events repeat their kernels' time
+        evs = [(e.key, getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)) / 1e3
+                / fwd, e.count / fwd) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        evs = sorted((e for e in evs if e[1] > 0), key=lambda e: -e[1])
+        busy = sum(e[1] for e in evs)
+        if not evs:
+            print("  profiler: no device time recorded (not measured)")
+            return
+        idle = 1 - busy / wall
+        if idle < -0.01:  # one stream: kernels cannot outlast the wall
+            print(f"  profile miscounted: kernels {busy:.3f} ms exceed wall "
+                  f"{wall:.3f} ms per forward; idle share not measured",
+                  flush=True)
+            return
+        print(f"  profile, per forward at batch {B}: wall {wall:.3f} ms, "
+              f"kernels {busy:.3f} ms, idle share {idle:.3f}", flush=True)
+        for key, ms, n in evs[:14]:
+            print(f"    {ms:8.3f} ms  x{n:5.1f}  {key[:100]}", flush=True)
+
+    k1_phase()
+    k2_phase()
+    k3_phase()
+    eng = slice_phase()
+    if eng is not None:
+        try:
+            where_the_time_goes(eng)
+        except Exception:  # a measurement; the checks above decide success
+            print(f"  profiler failed (not measured):\n"
+                  f"{traceback.format_exc()}", flush=True)
+    for r in rows.values():
+        if r.d["launches"] == 0:
+            failures.append(f"{r.d['name']} never launched on the main path")
+    if failures:
+        print(f"chip_smoke: FAILED: {failures}", file=sys.stderr, flush=True)
+        return 1
+    print(card)  # name, power limit: as nvidia-smi prints them
+    print(json.dumps({"kernels": [r.d for r in rows.values()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

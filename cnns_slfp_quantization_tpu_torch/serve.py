@@ -1,0 +1,115 @@
+"""Quantized-inference engine of the port (counterpart of the JAX
+``serve.py::InferenceEngine``), ResNet-50 so far.
+
+    engine = InferenceEngine("resnet", qbit=8)        # on the card
+    logits = engine.predict(images_nhwc)               # any batch size
+    top1 = engine.classify(images_nhwc)
+
+qbit 8 serves SLFP8 through the fused executor over frozen weights (bf16
+values, or uint8 codes with ``pack_weights=True``); qbit 32 runs the float32
+module path, the baseline.  The engine runs on ``device="cuda"`` unless the
+caller asks for ``device="cpu"``; without a card the default raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cnns_slfp_quantization_tpu_torch import calib, models
+from cnns_slfp_quantization_tpu_torch.ops import freeze
+
+
+class InferenceEngine:
+    def __init__(
+        self,
+        net: str,
+        *,
+        checkpoint: Optional[str] = None,
+        qbit: int = 8,
+        batch_size: int = 64,
+        image_size: int = 224,
+        pack_weights: bool = False,
+        policy: Optional[dict] = None,
+        scales=None,
+        device: str = "cuda",
+        seed: int = 0,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """``checkpoint``: a state_dict of the port's model saved with
+        ``torch.save``; without one the weights are flax's initializers
+        drawn from ``generator`` (or a CPU generator seeded with ``seed``),
+        the same on every device.  ``scales``: a calib.ScaleSet or a path to
+        a scale JSON; the shipped constants otherwise."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "InferenceEngine runs on the card by default and found no "
+                "CUDA device; pass device='cpu' to run on the CPU")
+        if qbit not in (8, 32):
+            raise NotImplementedError(
+                f"qbit {qbit}: the port serves SLFP8 (fused executor) and the "
+                f"fp32 baseline so far")
+        if isinstance(scales, (str, bytes)) or hasattr(scales, "read_text"):
+            scales = calib.load_scales_path(scales)
+        self.qbit = qbit
+        self.batch_size = batch_size
+        self.image_size = image_size
+        self.policy = policy
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        model = models.create_model(net, qbit, scales=scales,
+                                    generator=generator)
+        if checkpoint:
+            model.load_state_dict(torch.load(checkpoint, map_location="cpu",
+                                             weights_only=True))
+        model.eval()
+        if qbit == 8:
+            from cnns_slfp_quantization_tpu_torch.models import resnet50_fused
+
+            if pack_weights:
+                freeze.pack(model)
+            else:
+                freeze.prequantize(model, torch.bfloat16)
+            self.fused = resnet50_fused.prepare(model, device=self.device)
+            self._forward = lambda x: resnet50_fused.fused_apply(
+                self.fused, x, policy=self.policy)
+        else:
+            self.model = model.to(self.device)
+            self._forward = self.model
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits for an NHWC float32 batch already on the engine's device."""
+        with torch.inference_mode():
+            return self._forward(x)
+
+    def predict(self, images) -> np.ndarray:
+        """float32 logits for NHWC float32 images; any leading batch size,
+        padded internally to the fixed batch."""
+        x = np.asarray(images, np.float32)
+        n = x.shape[0]
+        out = []
+        for s in range(0, n, self.batch_size):
+            chunk = x[s:s + self.batch_size]
+            pad = self.batch_size - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate(
+                    [chunk, np.zeros((pad,) + chunk.shape[1:], np.float32)])
+            y = self.forward(torch.from_numpy(chunk).to(self.device))
+            out.append(y[:self.batch_size - pad].float().cpu().numpy())
+        return np.concatenate(out)[:n]
+
+    def classify(self, images) -> np.ndarray:
+        """Top-1 class ids."""
+        return np.argmax(self.predict(images), axis=-1)
+
+    def throughput(self, iters: int = 16) -> float:
+        """Images per second at the fixed batch size, timed on the card."""
+        from cnns_slfp_quantization_tpu_torch.utils.profiling import throughput
+
+        x = torch.zeros((self.batch_size, self.image_size, self.image_size,
+                         3), dtype=torch.float32, device=self.device)
+        return throughput(lambda: self.forward(x), self.batch_size,
+                          iters=iters)
