@@ -6,32 +6,47 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds the hand
    kernels from ``cnns_slfp_quantization_tpu_torch/csrc`` (one nvcc each,
    all at once).
-2. Kernel phases at the shapes SLFP8 ResNet-50 gives each kernel at batch
-   64: every kernel against its plain PyTorch version on the same inputs on
-   the card.  K1 (act quantize) and K3 (epilogue) must be bit-equal.  K2
-   (fused 1x1 GEMM) sums in another order: raw bf16 and f32 outputs within
-   one ulp of their type plus the reordering bound K * 2**-22 * (sum of the
-   terms' magnitudes), which is one ulp unless the epilogue cancels to near
-   zero; quantized outputs within one step of the quantizer's output in at
-   most 0.1% of elements.  Times are medians of 20 runs of 5 back-to-back
-   calls between CUDA events.
-3. Slice phase: ``InferenceEngine("resnet", qbit=8, batch_size=64)`` serves
-   requests of 64, 64 and 17 images with the launch counts reset just before
-   and read just after (K1 3, K2 32, K3 21 per forward); then the same
-   weights on the CPU (cosine > 0.995, same top-1), packed uint8 weights
-   (bit-equal logits), ``policy={"conv3": "torch"}`` (K3 dual 12 times per
-   forward, same bar), and images/s at batch 64 and 256 against the fp32
-   module path.
+2. Kernel phases at the shapes each path gives each kernel at batch 64 and
+   224x224: every kernel against its plain PyTorch version on the same
+   inputs on the card.  K1 (act quantize) and K3 (epilogue) must be
+   bit-equal.  K2 (fused 1x1 GEMM) and K4 (fused quantize-decode GEMM) sum
+   in another order: raw bf16 and f32 outputs within one ulp of their type
+   plus the reordering bound K * 2**-22 * (sum of the terms' magnitudes),
+   which is one ulp unless the sum cancels to near zero; quantized outputs
+   within one step of the quantizer's output in at most 0.1% of elements.
+   K4 is checked at SqueezeNet 1.0's, AlexNet's and ResNet-50's 1x1 / dense
+   shapes over uint8 and bf16-value weights, and over every flag (signed
+   and nonneg prologue, quantize_x=False, bias, ReLU, f32 and bf16 output,
+   f32 and bf16 x, both weight layouts).  Times are medians of 20 runs of 5
+   back-to-back calls between CUDA events.
+3. Paths, each with the launch counts reset just before it and read just
+   after it, over requests of 64, 64 and 17 images:
+   - ResNet-50 fused executor, ``InferenceEngine("resnet", qbit=8)`` (K1 3,
+     K2 32, K3 21 per forward); then the same weights on the CPU (cosine >
+     0.995, same top-1), packed uint8 weights (bit-equal logits),
+     ``policy={"conv3": "torch"}`` (K3 dual 12 times per forward);
+   - SqueezeNet 1.0 and AlexNet on the module path with packed weights,
+     ``InferenceEngine(net, qbit=8, pack_weights=True, use_pallas=None)``
+     (K4 17 and 3 per forward, K1 9 and 5); then the CPU (cosine > 0.995,
+     same top-1), float-frozen bf16 weights with ``use_pallas=True``
+     (bit-equal logits) and ``use_pallas=False`` (cosine > 0.995, same
+     top-1);
+   - ResNet-50 on the module path with ``use_pallas=True`` (K4 37, K1 17 per
+     forward), held against the fused executor's logits by the same bar;
+   and images/s at batch 64 of each against the unquantized float32 module
+   path (``qbit=32, compute_dtype=None``), plus ResNet-50's at batch 256.
+4. A torch.profiler breakdown per forward of the ResNet-50 fused executor
+   and of SqueezeNet 1.0's module path.
 
 The line before the last is one JSON object with, for each kernel, its
-launches over the main path's run of three requests (``launches``, three
-forwards) and per forward (``launches_per_forward``), and, per forward at
-batch 64 under the default policy, its time, its plain version's time, the
-matching PyTorch call's time where one exists, and its bound: the larger of
-the bytes it must move over 3.35 TB/s and its operations over the card's
-peak for their type.  The last line is
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero first,
-and so does a run without a CUDA device or outside the repository.
+launches over the run of its first path (``launches``, three forwards) and
+per forward, and, per forward at batch 64 on that path, its time, its plain
+version's time, the matching PyTorch call's time where one exists, and its
+bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over the card's peak for their type.  ``by_path`` gives the same
+per path.  The last line is ``{"ok": true, "device": {...}}``.  Any failed
+check exits non-zero first, and so does a run without a CUDA device or
+outside the repository.
 """
 
 from __future__ import annotations
@@ -85,30 +100,53 @@ def bound_ms(nbytes, ops, peak):
 
 
 class Row:
-    """Per-forward totals of one kernel: sum over its main-path shapes of
-    (value at that shape) x (launches of that shape per forward)."""
+    """One kernel's JSON entry.  Per path, per-forward totals: the sum over
+    the path's shapes of (value at that shape) x (launches of that shape per
+    forward).  The top-level numbers are those of the kernel's first path,
+    ``main``."""
 
-    def __init__(self, name, source, replaces):
-        self.d = dict(name=name, route="cuda", source=source,
-                      replaces=replaces, launches=0, launches_per_forward=0,
-                      max_abs_err=0.0, ms=0.0,
-                      plain_ms=0.0, bound_ms=0.0, bound_by="bytes",
-                      library_ms=None)
-        self._t_bytes = self._t_ops = 0.0
+    def __init__(self, name, source, replaces, main):
+        self.head = dict(name=name, route="cuda", source=source,
+                         replaces=replaces)
+        self.main = main
+        self.paths = {}
+        self.max_abs_err = 0.0
 
-    def add(self, per_fwd, ms, plain_ms, nbytes, ops, peak, lib_ms=None):
-        self.d["ms"] += per_fwd * ms
-        self.d["plain_ms"] += per_fwd * plain_ms
-        self._t_bytes += per_fwd * nbytes / HBM_BYTES_PER_S
-        self._t_ops += per_fwd * ops / peak
-        self.d["bound_ms"] += per_fwd * bound_ms(nbytes, ops, peak)[0]
-        self.d["bound_by"] = ("bytes" if self._t_bytes >= self._t_ops
-                              else "operations")
+    def _path(self, path):
+        return self.paths.setdefault(path or self.main, dict(
+            launches=0, launches_per_forward=0, ms=0.0, plain_ms=0.0,
+            bound_ms=0.0, bound_by="bytes", library_ms=None,
+            t_bytes=0.0, t_ops=0.0))
+
+    def add(self, per_fwd, ms, plain_ms, nbytes, ops, peak, lib_ms=None,
+            path=None):
+        d = self._path(path)
+        d["ms"] += per_fwd * ms
+        d["plain_ms"] += per_fwd * plain_ms
+        d["t_bytes"] += per_fwd * nbytes / HBM_BYTES_PER_S
+        d["t_ops"] += per_fwd * ops / peak
+        d["bound_ms"] += per_fwd * bound_ms(nbytes, ops, peak)[0]
+        d["bound_by"] = ("bytes" if d["t_bytes"] >= d["t_ops"]
+                         else "operations")
         if lib_ms is not None:
-            self.d["library_ms"] = (self.d["library_ms"] or 0.0) + per_fwd * lib_ms
+            d["library_ms"] = (d["library_ms"] or 0.0) + per_fwd * lib_ms
+
+    def counted(self, path, launches, forwards):
+        d = self._path(path)
+        d["launches"] = launches
+        d["launches_per_forward"] = launches // forwards
 
     def err(self, e):
-        self.d["max_abs_err"] = max(self.d["max_abs_err"], float(e))
+        self.max_abs_err = max(self.max_abs_err, float(e))
+
+    def out(self):
+        keys = ("launches", "launches_per_forward", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        main = self._path(self.main)
+        return dict(self.head, **{k: main[k] for k in keys},
+                    max_abs_err=self.max_abs_err,
+                    by_path={p: {k: d[k] for k in keys}
+                             for p, d in self.paths.items()})
 
 
 def main() -> int:
@@ -126,6 +164,7 @@ def main() -> int:
     from cnns_slfp_quantization_tpu_torch import calib, kernels
     from cnns_slfp_quantization_tpu_torch.kernels import _build
     from cnns_slfp_quantization_tpu_torch.kernels import epilogue as k3
+    from cnns_slfp_quantization_tpu_torch.kernels import fused_matmul as k4
     from cnns_slfp_quantization_tpu_torch.kernels import qmm as k2
     from cnns_slfp_quantization_tpu_torch.kernels import quantize as k1
     from cnns_slfp_quantization_tpu_torch.ops import sfp
@@ -154,11 +193,17 @@ def main() -> int:
 
     rows = {
         "k1": Row("act_quantize", f"{PKG}/csrc/quantize.cu",
-                  "cnns_slfp_quantization_tpu/kernels/quantize.py:83"),
+                  "cnns_slfp_quantization_tpu/kernels/quantize.py:83",
+                  "resnet_fused"),
         "k2": Row("qmm_fused", f"{PKG}/csrc/qmm.cu",
-                  "cnns_slfp_quantization_tpu/kernels/qmm.py:93"),
+                  "cnns_slfp_quantization_tpu/kernels/qmm.py:93",
+                  "resnet_fused"),
         "k3": Row("bn_epilogue", f"{PKG}/csrc/epilogue.cu",
-                  "cnns_slfp_quantization_tpu/kernels/epilogue.py:45"),
+                  "cnns_slfp_quantization_tpu/kernels/epilogue.py:45",
+                  "resnet_fused"),
+        "k4": Row("fused_quant_matmul", f"{PKG}/csrc/fused_matmul.cu",
+                  "cnns_slfp_quantization_tpu/kernels/fused_matmul.py:76",
+                  "squeezenet"),
     }
 
     def same_bits(a, b):
@@ -166,15 +211,100 @@ def main() -> int:
         bi = b.view(torch.int16) if b.dtype == torch.bfloat16 else b.view(torch.int32)
         return bool(torch.equal(ai, bi))
 
+    # ----------------------------------------------------- module paths
+    sq_rc = [sfp.recip_of(a) for a in calib.load_scales("squeezenet_imgnet").ka]
+    ax_rc = [sfp.recip_of(a) for a in calib.load_scales("alexnet_imgnet").ka]
+
+    def module_sites():
+        """K1 and K4 sites of the module paths at batch 64, 224x224:
+        {path: [(NHWC input shape, recip, launches per forward)]} for K1
+        (the input quantize of every layer K4 does not take) and {path:
+        [(input shape, K, N, stride, bias, launches per forward)]} for K4
+        (2-D input shape for a dense layer)."""
+        from collections import Counter
+
+        from cnns_slfp_quantization_tpu_torch.models.alexnet import CONVS
+        from cnns_slfp_quantization_tpu_torch.models.squeezenet import (
+            FIRE_PLAN,
+            POOL_BEFORE,
+        )
+
+        stem = ((B, 224, 224, 3), None, 1)
+        k1s = {"squeezenet": [stem], "alexnet": [stem],
+               "resnet_module": [stem]}
+        k4s = {}
+        # SqueezeNet 1.0: stem 109, ceil pools to 54, 27, 13
+        sq4, res, cin = Counter(), 54, 96
+        sq1 = Counter()
+        for f, (sq, e1, e3) in enumerate(FIRE_PLAN):
+            if f in POOL_BEFORE and f:
+                res = -(-(res - 3) // 2) + 1
+            sq4[((B, res, res, cin), cin, sq, 1, True)] += 1
+            sq4[((B, res, res, sq), sq, e1, 1, True)] += 1
+            sq1[((B, res, res, sq), sq_rc[3 + 3 * f])] += 1
+            cin = e1 + e3
+        sq4[((B, res, res, cin), cin, 1000, 1, True)] += 1
+        k1s["squeezenet"] += [(sh, r, c) for (sh, r), c in sq1.items()]
+        k4s["squeezenet"] = [(*key, c) for key, c in sq4.items()]
+        # AlexNet: convs 55, 27, 13, 13, 13 (pools 27, 13, 6), FC 9216
+        res, cin = 55, 64
+        for sid, (feat, _, _, _, pool) in enumerate(CONVS[1:], start=1):
+            if CONVS[sid - 1][4]:
+                res = (res - 3) // 2 + 1
+            k1s["alexnet"].append(((B, res, res, cin), ax_rc[sid], 1))
+            cin = feat
+        k4s["alexnet"] = [((B, 9216), 9216, 4096, 1, True, 1),
+                          ((B, 4096), 4096, 4096, 1, True, 1),
+                          ((B, 4096), 4096, 1000, 1, True, 1)]
+        # ResNet-50 with use_pallas=True: every 1x1 conv and the FC on K4,
+        # the stem and the 3x3 convs' inputs through K1
+        rn4, rn1, res, cin = Counter(), Counter(), 56, 64
+        for s_idx, (planes, blocks, stride, base) in enumerate(
+                [(64, 3, 1, 1), (128, 4, 2, 11), (256, 6, 2, 24),
+                 (512, 3, 2, 43)]):
+            for b in range(blocks):
+                st = stride if b == 0 else 1
+                out = res // st
+                rn4[((B, res, res, cin), cin, planes, 1, False)] += 1
+                rn1[((B, res, res, planes), rc[base + 3 * b + 2])] += 1
+                rn4[((B, out, out, planes), planes, 4 * planes, 1,
+                     False)] += 1
+                if b == 0:
+                    rn4[((B, res, res, cin), cin, 4 * planes, st, False)] += 1
+                res, cin = out, 4 * planes
+        rn4[((B, 2048), 2048, 1000, 1, True)] += 1
+        k1s["resnet_module"] += [(sh, r, c) for (sh, r), c in rn1.items()]
+        k4s["resnet_module"] = [(*key, c) for key, c in rn4.items()]
+        for path, want in (("squeezenet", (9, 17)), ("alexnet", (5, 3)),
+                           ("resnet_module", (17, 37))):
+            got = (sum(c for *_, c in k1s[path]),
+                   sum(c for *_, c in k4s[path]))
+            assert got == want, (path, got, want)
+        return k1s, k4s
+
+    k1_module_sites, k4_module_sites = module_sites()
+
     # ------------------------------------------------------------------ K1
     @phase("K1 act_quantize")
     def k1_phase():
-        cases = [  # (shape, dtype, recip, nonneg): the three main-path sites
-            ((B, 224, 224, 3), torch.float32, rc[0], False),   # stem input
-            ((B, 56, 56, 64), torch.bfloat16, rc[1], True),    # stage 0
-            ((B, 2048), torch.float32, rc[53], True),           # head
+        cases = [  # (path, shape, dtype, recip, nonneg, launches per forward)
+            ("resnet_fused", (B, 224, 224, 3), torch.float32, rc[0], False,
+             1),                                                # stem input
+            ("resnet_fused", (B, 56, 56, 64), torch.bfloat16, rc[1], True,
+             1),                                                # stage 0
+            ("resnet_fused", (B, 2048), torch.float32, rc[53], True, 1),
         ]
-        for shape, dt, r, nonneg in cases:
+        stem_rc = {"squeezenet": sq_rc[0], "alexnet": ax_rc[0],
+                   "resnet_module": rc[0]}
+        for path, sites in k1_module_sites.items():
+            for shape, r, per_fwd in sites:
+                if r is None:  # the stem: the signed f32 image
+                    cases.append((path, shape, torch.float32, stem_rc[path],
+                                  False, per_fwd))
+                else:
+                    cases.append((path, shape, torch.bfloat16, r, True,
+                                  per_fwd))
+        for path, shape, dt, r, nonneg, per_fwd in cases:
             x = randn(*shape, scale=1.0 / r * 1.5)
             if nonneg:
                 x = x.abs()
@@ -184,12 +314,15 @@ def main() -> int:
             torch.cuda.synchronize()
             assert same_bits(got, want), f"K1 {shape} not bit-equal"
             ms = median_ms(lambda: k1.act_quantize(x, r, nonneg=nonneg))
-            pms = median_ms(lambda: k1.act_quantize_plain(x, r, nonneg=nonneg))
+            pms = median_ms(lambda: k1.act_quantize_plain(x, r, nonneg=nonneg),
+                            iters=5, inner=1)
             n = x.numel()
             nbytes = n * (x.element_size() + 2)
-            rows["k1"].add(1, ms, pms, nbytes, n * K1_OPS, F32_OPS)
-            print(f"  K1 {shape} {dt}: {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"bound {bound_ms(nbytes, n * K1_OPS, F32_OPS)[0]:.4f} ms",
+            rows["k1"].add(per_fwd, ms, pms, nbytes, n * K1_OPS, F32_OPS,
+                           path=path)
+            print(f"  K1 {path} {shape} {dt} x{per_fwd}: {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms, bound "
+                  f"{bound_ms(nbytes, n * K1_OPS, F32_OPS)[0]:.4f} ms",
                   flush=True)
         # the Pallas kernel's own form (f32 -> f32, bf16 -> bf16)
         for dt in (torch.float32, torch.bfloat16):
@@ -400,41 +533,155 @@ def main() -> int:
                         k3.bn_epilogue_plain(y, s, t, quant_recip=rc[2])):
             assert same_bits(g, w), "K3 scalar path"
 
-    # ---------------------------------------------------------------- slice
-    @phase("slice: InferenceEngine resnet SLFP8")
-    def slice_phase():
-        def cos(a, b):
-            a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
-            return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    # ------------------------------------------------------------------ K4
+    ka4, kw4 = 0.37, 0.11  # x / ka spans the quantizer's range below
 
-        rng = np.random.default_rng(0)
-        requests = [rng.standard_normal((n, 224, 224, 3)).astype(np.float32)
-                    for n in (64, 64, 17)]
+    def k4_case(x, w, bias, stride=1, label="", **flags):
+        """Run K4 and its plain version on one input; check by K2's rule.
+        Returns (kernel call, plain call, library call, bytes, ops)."""
+        flags = dict(ka=ka4, kw=kw4, **flags)
+        if x.dim() == 4:
+            xs = x[:, ::stride, ::stride, :]
+            x2 = xs.reshape(-1, xs.shape[-1])
+            b_eff = k4._dense_bias(w, bias, flags.get("act"), dev)
+
+            def call():
+                return k4.quant_conv1x1(x, w, bias=bias, stride=stride,
+                                        **flags).reshape(-1, w.shape[1])
+        else:
+            x2, b_eff = x, bias
+
+            def call():
+                return k4.fused_quant_matmul(x, w, bias=bias, **flags)
+
+        def plain():
+            return k4.fused_quant_matmul_plain(x2, w, bias=b_eff, **flags)
+
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        if flags.get("quantize_x", True):
+            xq = sfp.act_bf16_bits(x2, 1.0 / ka4, 8, flags.get("nonneg", False))
+        else:
+            xq = x2.to(torch.bfloat16)
+        wv = k4._weight_values(w)
+        mag = xq.float().abs() @ wv.float().abs()
+        if b_eff is not None:
+            mag = mag + b_eff.abs() / (ka4 * kw4)
+        mag = mag * (ka4 * kw4)
+        rows["k4"].err(k2_check(got, want, False, label, mag, w.shape[0]))
+        wvc = wv.contiguous()
+        m, k, n = x2.shape[0], w.shape[0], w.shape[1]
+        nbytes = (m * k * x.element_size() + k * n * w.element_size()
+                  + (4 * n if b_eff is not None else 0)
+                  + m * n * got.element_size())
+        return call, plain, (lambda: torch.matmul(xq, wvc)), nbytes, \
+            2 * m * k * n
+
+    @phase("K4 fused_quant_matmul")
+    def k4_phase():
+        for path, sites in k4_module_sites.items():
+            for shape, k, n, stride, has_bias, per_fwd in sites:
+                x = randn(*shape, scale=1.5).abs().to(torch.bfloat16)
+                # the layers' [N, K] storage, handed over as its transpose
+                wq = sfp.quantize_weight(randn(n, k, scale=4.0), 8)
+                bias = randn(n, scale=0.1) if has_bias else None
+                ms_bf16 = None
+                for w in (wq.to(torch.bfloat16).t(), sfp.pack_slfp34(wq).t()):
+                    label = (f"K4 {path} {shape} K={k} N={n} s{stride} "
+                             f"{w.dtype}")
+                    call, plain, lib, nbytes, ops = k4_case(
+                        x, w, bias, stride, label, nonneg=True,
+                        out_dtype=torch.bfloat16)
+                    ms = median_ms(call)
+                    if w.dtype != torch.uint8:  # the path serves codes
+                        ms_bf16 = ms
+                        continue
+                    pms = median_ms(plain, iters=5, inner=1)
+                    lms = median_ms(lib)
+                    rows["k4"].add(per_fwd, ms, pms, nbytes, ops, BF16_FLOPS,
+                                   lms, path=path)
+                    bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
+                    print(f"  {label} x{per_fwd}: {ms:.4f} ms "
+                          f"({nbytes / ms / 1e6:.0f} GB/s; bf16 weights "
+                          f"{ms_bf16:.4f}), plain {pms:.4f}, torch.matmul "
+                          f"{lms:.4f}, bound {bms:.4f} ({by})", flush=True)
+        # every flag, at a large-M small-K shape and a small-M one, both
+        # weight layouts, f32 and bf16 x
+        variants = [
+            dict(nonneg=False, x_f32=True, out_dtype=torch.float32,
+                 bias=False, act=None, w="u8", layout="kn"),
+            dict(quantize_x=False, x_f32=False, out_dtype=torch.bfloat16,
+                 bias=True, act="relu", w="bf16", layout="nk"),
+            dict(nonneg=False, x_f32=False, out_dtype=torch.float32,
+                 bias=True, act="relu", w="bf16", layout="kn"),
+            dict(nonneg=True, x_f32=True, out_dtype=torch.bfloat16,
+                 bias=False, act=None, w="u8", layout="nk"),
+        ]
+        for m, k, n in ((B * 54 * 54, 16, 64), (B, 4096, 4096), (1000, 136, 72)):
+            for v in variants:
+                v = dict(v)
+                x = randn(m, k, scale=1.5)
+                if v.get("nonneg"):
+                    x = x.abs()
+                if not v.pop("x_f32"):
+                    x = x.to(torch.bfloat16)
+                if v.get("quantize_x") is False:
+                    x = k1.act_quantize_plain(x, 1.0 / ka4, nonneg=False)
+                wq = sfp.quantize_weight(randn(k, n, scale=4.0), 8)
+                w = sfp.pack_slfp34(wq) if v.pop("w") == "u8" \
+                    else wq.to(torch.bfloat16)
+                if v.pop("layout") == "nk":
+                    w = w.t().contiguous().t()
+                bias = randn(n, scale=0.1) if v.pop("bias") else None
+                k4_case(x, w, bias, 1, f"K4 flags M={m} K={k} N={n} {v} "
+                        f"{x.dtype} {w.dtype}", **v)
+
+    # ---------------------------------------------------------------- paths
+    def cos(a, b):
+        a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
+        return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+    def same_top1(a, b):
+        return bool((np.argmax(a, -1) == np.argmax(b, -1)).all())
+
+    rng = np.random.default_rng(0)
+    requests = [rng.standard_normal((n, 224, 224, 3)).astype(np.float32)
+                for n in (64, 64, 17)]
+    fwd = len(requests)                       # one forward per request
+
+    def serve(eng, path, want):
+        """The path's run: counts reset just before the three requests and
+        read just after; ``want`` maps wrapper -> launches per forward, every
+        other wrapper must stay at 0."""
+        eng.predict(requests[0][:1])          # warm-up: cuDNN plans
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        logits = [eng.predict(r) for r in requests]
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        print(f"  {path}: launches over {fwd} requests: {counts}", flush=True)
+        for name, n in counts.items():
+            assert n == fwd * want.get(name, 0), (name, counts, want)
+        for key, name in (("k1", "act_quantize"), ("k2", "qmm_fused"),
+                          ("k3", "bn_epilogue"), ("k4", "fused_quant_matmul")):
+            if want.get(name):
+                rows[key].counted(path, counts[name], fwd)
+        for r, lg in zip(requests, logits):
+            assert lg.shape == (r.shape[0], 1000) and np.isfinite(lg).all()
+        print(f"  logits[0, :4] = {logits[0][0, :4]}, top-1 of request 3: "
+              f"{np.argmax(logits[2], -1)[:8]}", flush=True)
+        return logits
+
+    @phase("path: InferenceEngine resnet SLFP8 fused executor")
+    def slice_phase():
         t0 = time.perf_counter()
         eng = InferenceEngine("resnet", qbit=8, batch_size=B, image_size=224,
                               seed=0)
         print(f"  engine built in {time.perf_counter() - t0:.1f} s",
               flush=True)
-        eng.predict(requests[0][:1])          # warm-up: cuDNN plans
-        torch.cuda.synchronize()
-
-        kernels.reset_launches()              # the main path's run
-        logits = [eng.predict(r) for r in requests]
-        torch.cuda.synchronize()
-        counts = kernels.launches()
-        fwd = len(requests)                   # one forward per request
-        print(f"  launches over {fwd} requests: {counts}", flush=True)
-        for key, name, per_fwd in (("k1", "act_quantize", 3),
-                                   ("k2", "qmm_fused", 32),
-                                   ("k3", "bn_epilogue", 21)):
-            assert counts[name] == fwd * per_fwd, counts
-            rows[key].d["launches"] = counts[name]
-            rows[key].d["launches_per_forward"] = counts[name] // fwd
-        assert counts["bn_epilogue_dual"] == 0, counts
-        for r, lg in zip(requests, logits):
-            assert lg.shape == (r.shape[0], 1000) and np.isfinite(lg).all()
-        print(f"  logits[0, :4] = {logits[0][0, :4]}, top-1 of request 3: "
-              f"{np.argmax(logits[2], -1)[:8]}", flush=True)
+        assert eng.fused
+        logits = serve(eng, "resnet_fused", {
+            "act_quantize": 3, "qmm_fused": 32, "bn_epilogue": 21})
 
         t0 = time.perf_counter()
         cpu = InferenceEngine("resnet", qbit=8, batch_size=2, image_size=224,
@@ -445,7 +692,7 @@ def main() -> int:
               f"{np.argmax(got, -1)} vs {np.argmax(logits[0][:2], -1)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         assert c > 0.995
-        assert (np.argmax(got, -1) == np.argmax(logits[0][:2], -1)).all()
+        assert same_top1(got, logits[0][:2])
 
         packed = InferenceEngine("resnet", qbit=8, batch_size=B,
                                  image_size=224, seed=0, pack_weights=True)
@@ -466,10 +713,10 @@ def main() -> int:
         c3 = cos(l3, logits[0])
         print(f"  policy conv3=torch: {counts3}, cos {c3:.6f}", flush=True)
         assert c3 > 0.995
-        assert (np.argmax(l3, -1) == np.argmax(logits[0], -1)).all()
+        assert same_top1(l3, logits[0])
 
         fp32 = InferenceEngine("resnet", qbit=32, batch_size=B,
-                               image_size=224, seed=0)
+                               image_size=224, seed=0, compute_dtype=None)
         lf = fp32.predict(requests[0][:8])
         assert np.isfinite(lf).all()
         tp = {}
@@ -482,9 +729,88 @@ def main() -> int:
             print(f"  throughput {key}: {val:.1f} images/s", flush=True)
         print(f"  SLFP8 / fp32: b64 {tp['slfp8_b64'] / tp['fp32_b64']:.3f}, "
               f"b256 {tp['slfp8_b256'] / tp['fp32_b256']:.3f}", flush=True)
+        return eng, logits[0]
+
+    def images_per_s(eng, label):
+        x = torch.from_numpy(rng.standard_normal(
+            (B, 224, 224, 3)).astype(np.float32)).to(dev)
+        ips = throughput(lambda: eng.forward(x), B)
+        print(f"  throughput {label}_b{B}: {ips:.1f} images/s", flush=True)
+        return ips
+
+    def module_path_phase(net, k4_per_fwd, k1_per_fwd):
+        """SLFP8 on the module path with packed weights, K4 by the auto
+        rule: the slice's main path for SqueezeNet 1.0 and AlexNet."""
+        t0 = time.perf_counter()
+        eng = InferenceEngine(net, qbit=8, batch_size=B, pack_weights=True,
+                              use_pallas=None, seed=0)
+        print(f"  engine built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        assert not eng.fused
+        logits = serve(eng, net, {"fused_quant_matmul": k4_per_fwd,
+                                  "act_quantize": k1_per_fwd})
+
+        t0 = time.perf_counter()
+        cpu = InferenceEngine(net, qbit=8, batch_size=2, pack_weights=True,
+                              use_pallas=None, seed=0, device="cpu")
+        got = cpu.predict(requests[0][:2])
+        c = cos(got, logits[0][:2])
+        print(f"  CPU plain path on 2 images: cos {c:.6f}, top-1 "
+              f"{np.argmax(got, -1)} vs {np.argmax(logits[0][:2], -1)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        assert c > 0.995
+        assert same_top1(got, logits[0][:2])
+
+        frozen = InferenceEngine(net, qbit=8, batch_size=B, use_pallas=True,
+                                 seed=0)
+        lf = frozen.predict(requests[0])
+        assert np.array_equal(lf.view(np.int32), logits[0].view(np.int32)), \
+            "float-frozen logits (use_pallas=True) differ from packed"
+        print("  float-frozen bf16 weights, use_pallas=True: logits "
+              "bit-equal to packed", flush=True)
+        del frozen
+
+        plain = InferenceEngine(net, qbit=8, batch_size=B, pack_weights=True,
+                                use_pallas=False, seed=0)
+        kernels.reset_launches()
+        lx = plain.predict(requests[0])
+        assert kernels.launches()["fused_quant_matmul"] == 0
+        cx = cos(lx, logits[0])
+        print(f"  use_pallas=False against None: cos {cx:.6f}", flush=True)
+        assert cx > 0.995
+        assert same_top1(lx, logits[0])
+        del plain
+
+        fp32 = InferenceEngine(net, qbit=32, batch_size=B, seed=0,
+                               compute_dtype=None)
+        assert np.isfinite(fp32.predict(requests[0][:8])).all()
+        tp8 = images_per_s(eng, f"{net}_slfp8_packed_k4")
+        tp32 = images_per_s(fp32, f"{net}_fp32")
+        print(f"  SLFP8 / fp32 b{B}: {tp8 / tp32:.3f}", flush=True)
         return eng
 
-    def where_the_time_goes(eng, fwd=3):
+    @phase("path: InferenceEngine squeezenet SLFP8 module path (K4)")
+    def squeezenet_phase():
+        return module_path_phase("squeezenet", 17, 9)
+
+    @phase("path: InferenceEngine alexnet SLFP8 module path (K4)")
+    def alexnet_phase():
+        module_path_phase("alexnet", 3, 5)
+
+    @phase("path: InferenceEngine resnet SLFP8 module path, use_pallas=True")
+    def resnet_module_phase(fused_logits):
+        eng = InferenceEngine("resnet", qbit=8, batch_size=B,
+                              pack_weights=True, use_pallas=True, seed=0)
+        assert not eng.fused
+        logits = serve(eng, "resnet_module", {"fused_quant_matmul": 37,
+                                              "act_quantize": 17})
+        c = cos(logits[0], fused_logits)
+        print(f"  against the fused executor: cos {c:.6f}", flush=True)
+        assert c > 0.995
+        assert same_top1(logits[0], fused_logits)
+        images_per_s(eng, "resnet_module_slfp8_packed_k4")
+
+    def where_the_time_goes(eng, label, fwd=3):
         """Device time per forward at batch 64 by kernel, from
         torch.profiler, and the share of the wall time with no kernel
         running.  A measurement, not a check: a profiler that shows no
@@ -523,7 +849,8 @@ def main() -> int:
                   f"{wall:.3f} ms per forward; idle share not measured",
                   flush=True)
             return
-        print(f"  profile, per forward at batch {B}: wall {wall:.3f} ms, "
+        print(f"  profile {label}, per forward at batch {B}: wall "
+              f"{wall:.3f} ms, "
               f"kernels {busy:.3f} ms, idle share {idle:.3f}", flush=True)
         for key, ms, n in evs[:14]:
             print(f"    {ms:8.3f} ms  x{n:5.1f}  {key[:100]}", flush=True)
@@ -531,21 +858,33 @@ def main() -> int:
     k1_phase()
     k2_phase()
     k3_phase()
-    eng = slice_phase()
-    if eng is not None:
+    k4_phase()
+    fused = slice_phase()
+    sq = squeezenet_phase()
+    alexnet_phase()
+    if fused is not None:
+        resnet_module_phase(fused[1])
+    else:
+        failures.append("resnet module path: no fused logits to compare")
+    for eng, label in ((fused and fused[0], "resnet fused"),
+                       (sq, "squeezenet module path")):
+        if eng is None:
+            continue
         try:
-            where_the_time_goes(eng)
+            where_the_time_goes(eng, label)
         except Exception:  # a measurement; the checks above decide success
             print(f"  profiler failed (not measured):\n"
                   f"{traceback.format_exc()}", flush=True)
     for r in rows.values():
-        if r.d["launches"] == 0:
-            failures.append(f"{r.d['name']} never launched on the main path")
+        for path, d in r.paths.items():
+            if d["launches"] == 0:
+                failures.append(f"{r.head['name']} never launched on the "
+                                f"{path} path")
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr, flush=True)
         return 1
     print(card)  # name, power limit: as nvidia-smi prints them
-    print(json.dumps({"kernels": [r.d for r in rows.values()]}))
+    print(json.dumps({"kernels": [r.out() for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,20 @@
 """Hand kernels for Hopper (``csrc/*.cu``) with their plain PyTorch versions.
 
-K1 :mod:`.quantize`, K2 :mod:`.qmm`, K3 :mod:`.epilogue`.  A wrapper given
-CUDA tensors launches its kernel (or raises) and adds one to its
-``launches`` count; given CPU tensors it runs the plain version and counts
-nothing.  Kernels build from source at first use (:mod:`._build`).
+K1 :mod:`.quantize`, K2 :mod:`.qmm`, K3 :mod:`.epilogue`, K4
+:mod:`.fused_matmul`.  A wrapper given CUDA tensors launches its kernel (or
+raises) and adds one to its ``launches`` count; given CPU tensors it runs
+the plain version and counts nothing.  Kernels build from source at first
+use (:mod:`._build`).
 """
 
 from __future__ import annotations
 
-from cnns_slfp_quantization_tpu_torch.kernels import epilogue, qmm, quantize
+from cnns_slfp_quantization_tpu_torch.kernels import (
+    epilogue,
+    fused_matmul,
+    qmm,
+    quantize,
+)
 
 # wrapper name -> wrapper, for the launch counts
 WRAPPERS = {
@@ -16,6 +22,7 @@ WRAPPERS = {
     "slfp34_act_quantize": quantize.slfp34_act_quantize,
     "qmm_fused": qmm.qmm_fused,
     "bn_epilogue": epilogue.bn_epilogue,
+    "fused_quant_matmul": fused_matmul.fused_quant_matmul,
 }
 
 

@@ -24,7 +24,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("quantize", "qmm", "epilogue")
+SOURCES = ("quantize", "qmm", "epilogue", "fused_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,6 +42,11 @@ SIGNATURES = {
     },
     "epilogue": {
         "slfp_epilogue": (_P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P),
+    },
+    "fused_matmul": {
+        "slfp_fused_matmul": (_P, _I, _LL, _I, _LL, _LL, _LL, _P, _I, _I,
+                              _P, _P, _I, _LL, _I, _I, _I, _F, _I, _F, _F,
+                              _I, _P),
     },
 }
 
@@ -65,8 +70,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
+    # every shared header enters the digest: an edited header rebuilds
+    # every library that may include it
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "slfp.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

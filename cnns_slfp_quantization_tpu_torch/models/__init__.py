@@ -1,7 +1,7 @@
 """Model registry of the port (counterpart of the JAX ``models/__init__.py``).
 
-Only ResNet-50 is ported so far; the rest of the zoo is ROADMAP Queue 1
-item 6.
+Ported so far: ResNet-50, SqueezeNet 1.0 and AlexNet (ImageNet); the rest
+of the zoo is ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -18,16 +18,40 @@ def create_model(name: str, qbit: int = 32, *,
                  num_classes: Optional[int] = None,
                  frozen_weights: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
+                 use_pallas: Optional[bool] = None,
+                 image_size: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
-    """Build a model by the reference CLI's ``--net`` name."""
+    """Build a model by the reference CLI's ``--net`` name.  ``image_size``
+    fixes AlexNet's fc1 width, which flax infers from the first input
+    (default: the dataset's ``INPUT_SIZE``)."""
+    common = dict(qbit=qbit, frozen_weights=frozen_weights,
+                  compute_dtype=compute_dtype, use_pallas=use_pallas,
+                  generator=generator, num_classes=num_classes or 1000)
     if name in ("resnet", "resnet50", "imgnet/resnet"):
         from cnns_slfp_quantization_tpu_torch.models import resnet50
 
         return resnet50.ResNet50(
-            scales=scales or calib.load_scales("resnet50_imgnet"),
-            num_classes=num_classes or 1000, qbit=qbit,
-            frozen_weights=frozen_weights, compute_dtype=compute_dtype,
-            generator=generator)
+            scales=scales or calib.load_scales("resnet50_imgnet"), **common)
+    if name in ("squeezenet", "imgnet/squeezenet"):
+        from cnns_slfp_quantization_tpu_torch.models import squeezenet
+
+        return squeezenet.SqueezeNet(
+            scales=scales or calib.load_scales("squeezenet_imgnet"), **common)
+    if name in ("alexnet", "imgnet/alexnet"):
+        from cnns_slfp_quantization_tpu_torch.models import alexnet
+
+        return alexnet.AlexNet(
+            scales=scales or calib.load_scales("alexnet_imgnet"),
+            image_size=image_size or INPUT_SIZE["imgnet"], **common)
     raise NotImplementedError(
         f"model {name!r} is not ported yet (ROADMAP Queue 1 item 6: the rest "
         f"of the zoo, module path)")
+
+
+# the ported names, keyed by dataset as in the JAX registry
+MODEL_NAMES = {
+    "cifar": [],
+    "imgnet": ["resnet", "alexnet", "squeezenet"],
+}
+
+INPUT_SIZE = {"cifar": 32, "imgnet": 224}

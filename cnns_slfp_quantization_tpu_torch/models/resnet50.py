@@ -6,7 +6,8 @@ convs plus 4 downsample convs, and the FC (index 53).  Within a stage with
 scale base ``base``, the downsample conv uses ``base`` and block ``b``'s
 conv1..3 use ``base+3b+1..+3``.  Submodules carry the flax names (``conv1``,
 ``bn1``, ``layer1_0_conv1``, ..., ``fc``) in flax's call order.  Inputs are
-NHWC float32, as in JAX; the layers run NCHW inside.
+NHWC float32, as in JAX; the layers run NCHW views in channels_last
+memory.
 """
 
 from __future__ import annotations
@@ -18,7 +19,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from cnns_slfp_quantization_tpu_torch.calib import ScaleSet
-from cnns_slfp_quantization_tpu_torch.ops.layers import QuantConv, QuantDense
+from cnns_slfp_quantization_tpu_torch.ops.layers import (
+    QuantConv,
+    QuantDense,
+    relu,
+)
 
 STAGES = [  # (planes, blocks, stride, scale_base), JAX resnet50.py:31-36
     (64, 3, 1, 1),
@@ -50,6 +55,7 @@ class ResNet50(nn.Module):
     def __init__(self, scales: ScaleSet, num_classes: int = 1000,
                  qbit: int = 32, frozen_weights: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
+                 use_pallas: Optional[bool] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.scales = scales
@@ -62,7 +68,7 @@ class ResNet50(nn.Module):
                              qbit=qbit, ka=scales.ka[sid], kw=scales.kw[sid],
                              frozen_weights=frozen_weights,
                              nonneg_input=nonneg, compute_dtype=compute_dtype,
-                             layer_id=sid)
+                             layer_id=sid, use_pallas=use_pallas)
 
         self.conv1 = conv(0, 3, 64, 7, 2, 3, nonneg=False)
         self.bn1 = _bn(64)
@@ -83,7 +89,8 @@ class ResNet50(nn.Module):
         self.fc = QuantDense(512 * EXPANSION, num_classes, qbit=qbit,
                              ka=scales.ka[53], kw=scales.kw[53],
                              frozen_weights=frozen_weights, nonneg_input=True,
-                             compute_dtype=compute_dtype, layer_id=53)
+                             compute_dtype=compute_dtype, layer_id=53,
+                             use_pallas=use_pallas)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -96,17 +103,17 @@ class ResNet50(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         for _, b, pre, *_ in block_names():
             identity = x
-            y = F.relu(getattr(self, f"{pre}_bn1")(
+            y = relu(getattr(self, f"{pre}_bn1")(
                 getattr(self, f"{pre}_conv1")(x)))
-            y = F.relu(getattr(self, f"{pre}_bn2")(
+            y = relu(getattr(self, f"{pre}_bn2")(
                 getattr(self, f"{pre}_conv2")(y)))
             y = getattr(self, f"{pre}_bn3")(getattr(self, f"{pre}_conv3")(y))
             if b == 0:
                 identity = getattr(self, f"{pre}_down_bn")(
                     getattr(self, f"{pre}_down_conv")(x))
-            x = F.relu(y + identity)
+            x = relu(y + identity)
         return self.fc(torch.mean(x, dim=(2, 3)))

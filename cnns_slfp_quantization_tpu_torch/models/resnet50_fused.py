@@ -33,7 +33,6 @@ the executor sets those flags around its own calls only.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
 
@@ -49,33 +48,9 @@ from cnns_slfp_quantization_tpu_torch.models.resnet50 import (
     block_names,
 )
 from cnns_slfp_quantization_tpu_torch.ops import sfp
+from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
 
 DEFAULT_POLICY = {"conv1": "kernel", "conv3": "kernel"}
-
-
-@contextlib.contextmanager
-def backend_flags():
-    """The PyTorch numerics flags the executor relies on, in one place, set
-    for the duration of one :func:`fused_apply` and restored after it, so
-    that other models in the process keep their own.
-
-    - cuDNN convolutions in TF32: the operands are bf16 values, which TF32
-      holds exactly, so each product is exact and the sums stay float32;
-      the result equals a full-float32 convolution and runs on tensor cores.
-    - float32 matmuls in TF32 for the same reason (the operands of the
-      plain matmuls and the head are bf16 values too); either setting is
-      exact.
-    - deterministic cuDNN algorithms, so that two runs on the same inputs
-      (packed against float-frozen weights) give the same bits.
-    """
-    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                    deterministic=True, allow_tf32=True):
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            yield
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
 
 
 def bn_fold(bn: torch.nn.BatchNorm2d, kaw: float):

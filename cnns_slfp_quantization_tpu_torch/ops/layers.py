@@ -8,11 +8,21 @@ Semantics (reference utils/conv2d_func.py:20-25, 41-47, 60-65):
 
 PyTorch layout inside the layers: NCHW activations and OIHW weights (the
 reference's own), registered as ``weight`` / ``bias`` so that a state_dict
-in reference registration order loads.  ``frozen_weights`` layers hold
-``Q(w/Kw)`` already (``ops/freeze.py``), as float/bf16 values or uint8
-SLFP<3,4> codes.  ``compute_dtype=torch.bfloat16`` quantizes through the
-bit-domain ``act_bf16_bits`` and convolves bf16 values with float32 sums;
+in reference registration order loads.  The models feed NHWC images as an
+NCHW view, so activations run in ``torch.channels_last`` memory throughout.
+``frozen_weights`` layers hold ``Q(w/Kw)`` already (``ops/freeze.py``), as
+float/bf16 values or uint8 SLFP<3,4> codes.  ``compute_dtype=torch.bfloat16``
+quantizes through the bit-domain activation quantizer (K1 on the card, its
+plain version on the CPU) and convolves bf16 values with float32 sums;
 ``None`` keeps float32 throughout.
+
+``use_pallas`` routes a layer to K4 (``kernels/fused_matmul.py``), as the
+JAX ``_pallas_eligible`` / ``pallas_ok`` do: ``True`` sends every eligible
+layer (qbit 8; for convs 1x1 with no padding), ``None`` sends it when its
+weights are uint8 codes, the compute dtype is bf16 and the input lies on the
+card, ``False`` never.  K4 reads the ``[N, K]`` storage of the weight as it
+is (``weight.t()`` is a view), so nothing is copied or transposed per
+forward, and returns the layer's output with no second rescale.
 """
 
 from __future__ import annotations
@@ -24,7 +34,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cnns_slfp_quantization_tpu_torch.kernels import fused_matmul
+from cnns_slfp_quantization_tpu_torch.kernels.quantize import act_quantize
 from cnns_slfp_quantization_tpu_torch.ops import sfp
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """ReLU that yields +0.0 for -0.0, as JAX's ``jnp.maximum(x, 0)``, in
+    one pass (``x <= 0 -> +0.0``): ``F.relu`` keeps -0.0, whose bit pattern
+    the ``nonneg`` quantizer maps to the pseudo-zero."""
+    return F.threshold(x, 0.0, 0.0)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NHWC view of an NCHW tensor in channels_last memory (a copy only if
+    it is in another layout)."""
+    return x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
 
 
 def he_normal_(w: torch.Tensor, fan_in: int,
@@ -38,7 +63,7 @@ def he_normal_(w: torch.Tensor, fan_in: int,
 
 class _QuantBase(nn.Module):
     def __init__(self, qbit, ka, kw, frozen_weights, nonneg_input,
-                 compute_dtype, layer_id):
+                 compute_dtype, layer_id, use_pallas):
         super().__init__()
         self.qbit = qbit
         self.ka = float(ka)
@@ -47,6 +72,7 @@ class _QuantBase(nn.Module):
         self.nonneg_input = nonneg_input
         self.compute_dtype = compute_dtype
         self.layer_id = layer_id
+        self.use_pallas = use_pallas
         # float32 scale constants as device tensors: a division by a tensor
         # is a true division on every device (a Python scalar may become a
         # reciprocal multiply)
@@ -58,18 +84,26 @@ class _QuantBase(nn.Module):
                                                    * np.float32(kw)),
                              persistent=False)
 
-    def weight_q(self) -> torch.Tensor:
+    def weight_frozen(self) -> torch.Tensor:
+        """``Q(w/Kw)`` as stored (values or uint8 codes) or computed now."""
         w = self.weight
-        if w.dtype == torch.uint8:
-            return sfp.unpack_slfp34(w)
-        if self.frozen_weights:
+        if self.frozen_weights or w.dtype == torch.uint8:
             return w
         return sfp.quantize_weight(w / self.kw32, self.qbit)
 
+    def weight_q(self) -> torch.Tensor:
+        w = self.weight_frozen()
+        return sfp.unpack_slfp34(w) if w.dtype == torch.uint8 else w
+
     def input_q(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype == torch.bfloat16 and self.qbit in (7, 8):
-            return sfp.act_bf16_bits(x, sfp.recip_of(self.ka), self.qbit,
-                                     self.nonneg_input)
+            # K1 on the card, its plain version on the CPU
+            args = dict(qbit=self.qbit, nonneg=self.nonneg_input)
+            recip = sfp.recip_of(self.ka)
+            if x.dim() == 4:
+                return act_quantize(_nhwc(x), recip, **args).permute(
+                    0, 3, 1, 2)
+            return act_quantize(x.contiguous(), recip, **args)
         return sfp.quantize_act(x / self.ka32, self.qbit)
 
     def operands(self, x):
@@ -82,11 +116,24 @@ class _QuantBase(nn.Module):
 
     def rescale(self, y: torch.Tensor) -> torch.Tensor:
         if self.bias is not None:
-            y = y + self.bias / self.kaw32
+            b = self.bias / self.kaw32
+            y = y + (b[:, None, None] if y.dim() == 4 else b)  # NCHW: per C
         y = y * self.kaw32
         if self.compute_dtype is not None:
             y = y.to(self.compute_dtype)
         return y
+
+    def k4_args(self) -> dict:
+        """K4's keyword arguments, as the JAX layers pass them."""
+        return dict(ka=float(np.float32(self.ka)),
+                    kw=float(np.float32(self.kw)), bias=self.bias,
+                    nonneg=self.nonneg_input,
+                    out_dtype=self.compute_dtype or torch.float32)
+
+    def k4_wanted(self, x: torch.Tensor) -> bool:
+        return self.use_pallas is True or (
+            self.use_pallas is None and self.weight.dtype == torch.uint8
+            and self.compute_dtype == torch.bfloat16 and x.is_cuda)
 
 
 class QuantConv(_QuantBase):
@@ -97,9 +144,10 @@ class QuantConv(_QuantBase):
                  qbit: int = 32, ka: float = 1.0, kw: float = 1.0,
                  frozen_weights: bool = False, nonneg_input: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
-                 layer_id: Optional[int] = None):
+                 layer_id: Optional[int] = None,
+                 use_pallas: Optional[bool] = None):
         super().__init__(qbit, ka, kw, frozen_weights, nonneg_input,
-                         compute_dtype, layer_id)
+                         compute_dtype, layer_id, use_pallas)
         self.stride = stride
         self.padding = padding
         self.weight = nn.Parameter(torch.empty(
@@ -113,7 +161,19 @@ class QuantConv(_QuantBase):
             if self.bias is not None:
                 self.bias.zero_()
 
+    def uses_k4(self, x: torch.Tensor) -> bool:
+        """JAX ``QuantConv._pallas_eligible``."""
+        return (self.use_pallas is not False and self.qbit == 8
+                and self.weight.shape[-2:] == (1, 1) and self.padding == 0
+                and self.k4_wanted(x))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.uses_k4(x):
+            w = self.weight_frozen()
+            y = fused_matmul.quant_conv1x1(
+                _nhwc(x), w.reshape(w.shape[0], w.shape[1]).t(),
+                stride=self.stride, **self.k4_args())
+            return y.permute(0, 3, 1, 2)
         xq, wq = self.operands(x)
         y = F.conv2d(xq, wq, stride=self.stride, padding=self.padding)
         return self.rescale(y)
@@ -127,9 +187,10 @@ class QuantDense(_QuantBase):
                  kw: float = 1.0, frozen_weights: bool = False,
                  nonneg_input: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
-                 layer_id: Optional[int] = None):
+                 layer_id: Optional[int] = None,
+                 use_pallas: Optional[bool] = None):
         super().__init__(qbit, ka, kw, frozen_weights, nonneg_input,
-                         compute_dtype, layer_id)
+                         compute_dtype, layer_id, use_pallas)
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
@@ -139,6 +200,15 @@ class QuantDense(_QuantBase):
             if self.bias is not None:
                 self.bias.zero_()
 
+    def uses_k4(self, x: torch.Tensor) -> bool:
+        """JAX ``QuantDense``'s ``pallas_ok``."""
+        return (self.use_pallas is not False and self.qbit == 8
+                and self.compute_dtype == torch.bfloat16
+                and self.k4_wanted(x))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.uses_k4(x):
+            return fused_matmul.quant_dense(x, self.weight_frozen().t(),
+                                            **self.k4_args())
         xq, wq = self.operands(x)
         return self.rescale(xq @ wq.t())

@@ -1,14 +1,18 @@
 """Quantized-inference engine of the port (counterpart of the JAX
-``serve.py::InferenceEngine``), ResNet-50 so far.
+``serve.py::InferenceEngine``), for ResNet-50, SqueezeNet 1.0 and AlexNet.
 
     engine = InferenceEngine("resnet", qbit=8)        # on the card
     logits = engine.predict(images_nhwc)               # any batch size
     top1 = engine.classify(images_nhwc)
 
-qbit 8 serves SLFP8 through the fused executor over frozen weights (bf16
-values, or uint8 codes with ``pack_weights=True``); qbit 32 runs the float32
-module path, the baseline.  The engine runs on ``device="cuda"`` unless the
-caller asks for ``device="cpu"``; without a card the default raises.
+qbit 8 freezes the weights once (bf16 values, or uint8 SLFP<3,4> codes with
+``pack_weights=True``) and serves them either through the fused executor
+(``fused``; ResNet-50 only, the default there) or through the module path
+(``create_model(..., frozen_weights=True, use_pallas=...)``), where
+``use_pallas`` routes the 1x1 convs and dense layers to K4 as in JAX.
+qbit 32 runs the module path unquantized.  The engine runs on
+``device="cuda"`` unless the caller asks for ``device="cpu"``; without a
+card the default raises.
 """
 
 from __future__ import annotations
@@ -20,6 +24,10 @@ import torch
 
 from cnns_slfp_quantization_tpu_torch import calib, models
 from cnns_slfp_quantization_tpu_torch.ops import freeze
+from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
+
+# nets with a fused executor (JAX serve.py:63-70, over the ported nets)
+FUSABLE = ("resnet", "resnet50", "imgnet/resnet")
 
 
 class InferenceEngine:
@@ -30,8 +38,11 @@ class InferenceEngine:
         checkpoint: Optional[str] = None,
         qbit: int = 8,
         batch_size: int = 64,
-        image_size: int = 224,
+        image_size: Optional[int] = None,
         pack_weights: bool = False,
+        compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+        use_pallas: Optional[bool] = False,
+        fused: Optional[bool] = None,
         policy: Optional[dict] = None,
         scales=None,
         device: str = "cuda",
@@ -42,7 +53,12 @@ class InferenceEngine:
         ``torch.save``; without one the weights are flax's initializers
         drawn from ``generator`` (or a CPU generator seeded with ``seed``),
         the same on every device.  ``scales``: a calib.ScaleSet or a path to
-        a scale JSON; the shipped constants otherwise."""
+        a scale JSON; the shipped constants otherwise.
+
+        ``fused=None`` picks the fused executor for SLFP8 ResNet-50 unless
+        the caller asks for K4 (``use_pallas=True``) or float32 numerics
+        (``compute_dtype=None``); ``fused=True`` on another net or qbit
+        raises.  ``policy`` goes to the fused executor."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -50,35 +66,60 @@ class InferenceEngine:
                 "CUDA device; pass device='cpu' to run on the CPU")
         if qbit not in (8, 32):
             raise NotImplementedError(
-                f"qbit {qbit}: the port serves SLFP8 (fused executor) and the "
-                f"fp32 baseline so far")
+                f"qbit {qbit}: the port serves SLFP8 and the unquantized "
+                f"module path so far")
         if isinstance(scales, (str, bytes)) or hasattr(scales, "read_text"):
             scales = calib.load_scales_path(scales)
+        fusable = net in FUSABLE
+        if fused is None:
+            fused = (fusable and qbit == 8 and use_pallas is not True
+                     and compute_dtype == torch.bfloat16)
+        elif fused and not (fusable and qbit == 8):
+            raise ValueError(
+                f"fused=True requires net in {FUSABLE} and qbit=8 (the "
+                f"fused executor consumes SLFP<3,4> frozen weights, float "
+                f"or packed uint8); got {net!r}, qbit {qbit}")
+        self.fused = fused
         self.qbit = qbit
         self.batch_size = batch_size
-        self.image_size = image_size
+        self.image_size = image_size or (
+            models.INPUT_SIZE["cifar"] if net in models.MODEL_NAMES["cifar"]
+            else models.INPUT_SIZE["imgnet"])
         self.policy = policy
         if generator is None:
             generator = torch.Generator().manual_seed(seed)
-        model = models.create_model(net, qbit, scales=scales,
-                                    generator=generator)
+        model = models.create_model(
+            net, qbit, scales=scales, compute_dtype=compute_dtype,
+            use_pallas=use_pallas, image_size=self.image_size,
+            generator=generator)
         if checkpoint:
             model.load_state_dict(torch.load(checkpoint, map_location="cpu",
                                              weights_only=True))
         model.eval()
         if qbit == 8:
-            from cnns_slfp_quantization_tpu_torch.models import resnet50_fused
-
             if pack_weights:
                 freeze.pack(model)
             else:
-                freeze.prequantize(model, torch.bfloat16)
-            self.fused = resnet50_fused.prepare(model, device=self.device)
+                freeze.prequantize(
+                    model, torch.bfloat16 if fused else
+                    compute_dtype or torch.float32)
+        if fused:
+            from cnns_slfp_quantization_tpu_torch.models import resnet50_fused
+
+            self.executor = resnet50_fused.prepare(model, device=self.device)
             self._forward = lambda x: resnet50_fused.fused_apply(
-                self.fused, x, policy=self.policy)
+                self.executor, x, policy=self.policy)
         else:
             self.model = model.to(self.device)
-            self._forward = self.model
+            self._forward = self._slfp8_module if qbit == 8 else self.model
+
+    def _slfp8_module(self, x: torch.Tensor) -> torch.Tensor:
+        """The SLFP8 module path (K4 where ``use_pallas`` routes a layer, K1
+        for the other layers' input quantize) under the fused executor's
+        numerics flags: without deterministic cuDNN, packed and
+        float-frozen weights would not give the same bits."""
+        with backend_flags():
+            return self.model(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Logits for an NHWC float32 batch already on the engine's device."""

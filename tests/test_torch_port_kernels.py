@@ -20,6 +20,7 @@ from cnns_slfp_quantization_tpu.ops import sfp as jsfp
 from cnns_slfp_quantization_tpu_torch import kernels as tk
 from cnns_slfp_quantization_tpu_torch.kernels import _build
 from cnns_slfp_quantization_tpu_torch.kernels import epilogue as tepi
+from cnns_slfp_quantization_tpu_torch.kernels import fused_matmul as tfm
 from cnns_slfp_quantization_tpu_torch.kernels import qmm as tqmm
 from cnns_slfp_quantization_tpu_torch.kernels import quantize as tquant
 from cnns_slfp_quantization_tpu_torch.ops import sfp as tsfp
@@ -292,7 +293,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
 
 
 @pytest.mark.parametrize("wrapper", ["act_quantize", "slfp34_act_quantize",
-                                     "qmm_fused", "bn_epilogue"])
+                                     "qmm_fused", "bn_epilogue",
+                                     "fused_quant_matmul"])
 def test_non_cpu_tensors_never_take_the_plain_version(wrapper):
     """Only a CPU tensor runs the plain version: any other device goes to
     the kernel's launch path, which refuses what is not on one CUDA device
@@ -310,6 +312,10 @@ def test_non_cpu_tensors_never_take_the_plain_version(wrapper):
         "bn_epilogue": lambda: tepi.bn_epilogue(
             torch.empty(4, 8, **meta), torch.empty(8, **meta),
             torch.empty(8, **meta)),
+        "fused_quant_matmul": lambda: tfm.fused_quant_matmul(
+            torch.empty(16, 8, dtype=torch.bfloat16, **meta),
+            torch.empty(8, 8, dtype=torch.uint8, **meta), ka=1.0, kw=1.0,
+            bias=torch.empty(8, **meta)),
     }
     tk.reset_launches()
     with pytest.raises(ValueError, match="CUDA"):

@@ -224,7 +224,7 @@ def test_engine_cpu_predict_pads_and_matches_fused():
     logits = eng.predict(x)
     assert logits.shape == (3, 1000) and np.isfinite(logits).all()
     with torch.no_grad():
-        direct = tfused.fused_apply(eng.fused, torch.from_numpy(x[2:3]))
+        direct = tfused.fused_apply(eng.executor, torch.from_numpy(x[2:3]))
     np.testing.assert_array_equal(logits[2], direct.float().numpy()[0])
     np.testing.assert_array_equal(eng.classify(x), np.argmax(logits, -1))
 
