@@ -14,11 +14,16 @@
    plus the reordering bound K * 2**-22 * (sum of the terms' magnitudes),
    which is one ulp unless the sum cancels to near zero; quantized outputs
    within one step of the quantizer's output in at most 0.1% of elements.
-   K4 is checked at SqueezeNet 1.0's, AlexNet's and ResNet-50's 1x1 / dense
-   shapes over uint8 and bf16-value weights, and over every flag (signed
-   and nonneg prologue, quantize_x=False, bias, ReLU, f32 and bf16 output,
-   f32 and bf16 x, both weight layouts).  Times are medians of 20 runs of 5
-   back-to-back calls between CUDA events.
+   K4 is checked at SqueezeNet 1.0's, AlexNet's, ResNet-50's and
+   MobileNetV1's 1x1 / dense shapes over uint8 and bf16-value weights, and
+   over every flag (signed and nonneg prologue, quantize_x=False, bias,
+   ReLU, f32 and bf16 output, f32 and bf16 x, both weight layouts).  K5
+   (depthwise 3x3) must be bit-equal at MobileNetV1's 9 stride-1 sites
+   (ImageNet at batch 64 and 256, CIFAR at 64) in three forms (serving:
+   bf16, ReLU, quantize; f32 out without ReLU; nonneg_in without ReLU) and
+   at odd shapes, and is timed against cuDNN's grouped conv alone and
+   against the grouped conv + K3 chain it replaces.  Times are medians of
+   20 runs of 5 back-to-back calls between CUDA events.
 3. Paths, each with the launch counts reset just before it and read just
    after it, over requests of 64, 64 and 17 images:
    - ResNet-50 fused executor, ``InferenceEngine("resnet", qbit=8)`` (K1 3,
@@ -33,10 +38,23 @@
      top-1);
    - ResNet-50 on the module path with ``use_pallas=True`` (K4 37, K1 17 per
      forward), held against the fused executor's logits by the same bar;
+   - MobileNetV1 ImageNet through the fused executor,
+     ``InferenceEngine("mobilenetv1", qbit=8)`` (K1 1, K3 18, K5 9 per
+     forward); then the CPU (cosine > 0.995, same top-1), packed weights
+     (bit-equal logits), ``policy={"dw": "torch"}`` (K3 27, K5 0; cosine >
+     0.995, same top-1); CIFAR ``mobilenet`` at 32x32 (K1 2, K3 18, K5 9);
+     the ImageNet module path with packed weights (K4 13, K1 14), held
+     against the fused logits by JAX's bar between the two (cosine > 0.98,
+     equal top-1 on decisive rows).  Their scales are derived here from one
+     float32 forward of the same random weights (absmax / 15.5 of each
+     layer's input and weight): the shipped constants belong to trained
+     weights and saturate the quantizers of random ones;
    and images/s at batch 64 of each against the unquantized float32 module
-   path (``qbit=32, compute_dtype=None``), plus ResNet-50's at batch 256.
-4. A torch.profiler breakdown per forward of the ResNet-50 fused executor
-   and of SqueezeNet 1.0's module path.
+   path (``qbit=32, compute_dtype=None``), plus the fused executors' at
+   batch 256.
+4. A torch.profiler breakdown per forward of the ResNet-50 and MobileNetV1
+   fused executors (the latter under both ``dw`` routes) and of SqueezeNet
+   1.0's module path.
 
 The line before the last is one JSON object with, for each kernel, its
 launches over the run of its first path (``launches``, three forwards) and
@@ -70,6 +88,7 @@ F32_OPS = 67e12                # float32 outside the tensor cores
 # from csrc/slfp.cuh (quantize ~25, epilogue affine+residual+ReLU+quantize
 # ~35); both are far below the bytes bound
 K1_OPS, K3_OPS = 25, 35
+DW_OPS = 18                    # K5's stencil: 9 multiply-adds per element
 
 failures: list = []
 
@@ -151,6 +170,7 @@ class Row:
 
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -163,11 +183,18 @@ def main() -> int:
 
     from cnns_slfp_quantization_tpu_torch import calib, kernels
     from cnns_slfp_quantization_tpu_torch.kernels import _build
+    from cnns_slfp_quantization_tpu_torch.kernels import depthwise as k5
     from cnns_slfp_quantization_tpu_torch.kernels import epilogue as k3
     from cnns_slfp_quantization_tpu_torch.kernels import fused_matmul as k4
     from cnns_slfp_quantization_tpu_torch.kernels import qmm as k2
     from cnns_slfp_quantization_tpu_torch.kernels import quantize as k1
+    from cnns_slfp_quantization_tpu_torch.models.mobilenetv1 import DW_CONFIG
+    from cnns_slfp_quantization_tpu_torch.models.resnet50_fused import (
+        ConvKxK,
+        _conv_f32,
+    )
     from cnns_slfp_quantization_tpu_torch.ops import sfp
+    from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
     from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
     from cnns_slfp_quantization_tpu_torch.utils.profiling import (
         median_ms, throughput)
@@ -204,6 +231,9 @@ def main() -> int:
         "k4": Row("fused_quant_matmul", f"{PKG}/csrc/fused_matmul.cu",
                   "cnns_slfp_quantization_tpu/kernels/fused_matmul.py:76",
                   "squeezenet"),
+        "k5": Row("dw3x3", f"{PKG}/csrc/depthwise.cu",
+                  "cnns_slfp_quantization_tpu/kernels/depthwise.py:61",
+                  "mobilenetv1_fused"),
     }
 
     def same_bits(a, b):
@@ -284,6 +314,39 @@ def main() -> int:
 
     k1_module_sites, k4_module_sites = module_sites()
 
+    def mobilenet_sites(size):
+        """MobileNetV1's kernel sites at batch B for size x size images, per
+        forward: K3 {(NHWC shape, form): n} and K5 {NHWC shape: n} of the
+        fused executor, K4 {(input shape, K, N): n} and the depthwise
+        inputs {NHWC shape: n} that K1 quantizes on the module path."""
+        from collections import Counter
+
+        k3s, k5s, k4s, k1s = Counter(), Counter(), Counter(), Counter()
+        res = (size - 1) // 2 + 1             # stem 3x3/s2/p1
+        k3s[((B, res, res, 32), "q")] += 1
+        for b, (inp, oup, stride) in enumerate(DW_CONFIG):
+            out = (res - 1) // stride + 1
+            k1s[(B, res, res, inp)] += 1
+            if stride == 1:
+                k5s[(B, res, res, inp)] += 1
+            else:
+                k3s[((B, out, out, inp), "q")] += 1
+            res = out
+            k4s[((B, res, res, inp), inp, oup)] += 1
+            last = b == len(DW_CONFIG) - 1
+            k3s[((B, res, res, oup), "raw_relu" if last else "q")] += 1
+        assert (sum(k3s.values()), sum(k5s.values()), sum(k4s.values()),
+                sum(k1s.values())) == (18, 9, 13, 13)
+        return k3s, k5s, k4s, k1s
+
+    mn_sites = {"mobilenetv1_fused": mobilenet_sites(224),
+                "mobilenet_fused": mobilenet_sites(32)}
+    k1_module_sites["mobilenetv1_module"] = [((B, 224, 224, 3), None, 1)] + [
+        (shape, rc[2], n) for shape, n in mn_sites["mobilenetv1_fused"][3].items()]
+    k4_module_sites["mobilenetv1_module"] = [
+        (shape, k, n, 1, False, c)
+        for (shape, k, n), c in mn_sites["mobilenetv1_fused"][2].items()]
+
     # ------------------------------------------------------------------ K1
     @phase("K1 act_quantize")
     def k1_phase():
@@ -294,8 +357,15 @@ def main() -> int:
              1),                                                # stage 0
             ("resnet_fused", (B, 2048), torch.float32, rc[53], True, 1),
         ]
+        cases += [
+            ("mobilenetv1_fused", (B, 224, 224, 3), torch.float32, rc[0],
+             False, 1),
+            ("mobilenet_fused", (B, 32, 32, 3), torch.float32, rc[0], False,
+             1),
+            ("mobilenet_fused", (B, 1024), torch.float32, rc[53], True, 1),
+        ]
         stem_rc = {"squeezenet": sq_rc[0], "alexnet": ax_rc[0],
-                   "resnet_module": rc[0]}
+                   "resnet_module": rc[0], "mobilenetv1_module": rc[0]}
         for path, sites in k1_module_sites.items():
             for shape, r, per_fwd in sites:
                 if r is None:  # the stem: the signed f32 image
@@ -473,17 +543,23 @@ def main() -> int:
 
     # ------------------------------------------------------------------ K3
     def k3_sites():
-        """(shape, form, launches per forward) of the epilogue sites."""
-        out = [((B, 112, 112, 64), "raw_relu", 1)]
+        """(path, shape, form, launches per forward) of the epilogue
+        sites."""
+        out = [("resnet_fused", (B, 112, 112, 64), "raw_relu", 1)]
         res, in_stride = 56, [1, 2, 2, 2]
         for s, (planes, blocks) in enumerate([(64, 3), (128, 4), (256, 6),
                                               (512, 3)]):
             res //= in_stride[s]
-            out.append(((B, res, res, planes * 4), "raw_norelu", 1))
-            out.append(((B, res, res, planes), "q", blocks))
-            out.append(((B, res, res, planes * 4), "dual", 0))
+            out.append(("resnet_fused", (B, res, res, planes * 4),
+                        "raw_norelu", 1))
+            out.append(("resnet_fused", (B, res, res, planes), "q", blocks))
+            out.append(("resnet_fused", (B, res, res, planes * 4), "dual",
+                        0))
             if s < 3:
-                out.append(((B, res, res, planes * 4), "q_res", 0))
+                out.append(("resnet_fused", (B, res, res, planes * 4),
+                            "q_res", 0))
+        for path, (k3s, *_) in mn_sites.items():
+            out += [(path, shape, form, n) for (shape, form), n in k3s.items()]
         return out
 
     forms = {
@@ -497,7 +573,7 @@ def main() -> int:
 
     @phase("K3 bn_epilogue")
     def k3_phase():
-        for shape, form, per_fwd in k3_sites():
+        for path, shape, form, per_fwd in k3_sites():
             kw = dict(forms[form])
             c = shape[-1]
             y = randn(*shape, scale=40.0)
@@ -515,14 +591,15 @@ def main() -> int:
             ms = median_ms(lambda: k3.bn_epilogue(y, s, t, identity=ident,
                                                   **kw))
             pms = median_ms(lambda: k3.bn_epilogue_plain(
-                y, s, t, identity=ident, **kw))
+                y, s, t, identity=ident, **kw), iters=5, inner=1)
             n = y.numel()
             outs = sum(1 for g in got if g is not None)
             nbytes = n * (4 + (2 if ident is not None else 0) + 2 * outs) \
                 + c * 8
             if per_fwd:
-                rows["k3"].add(per_fwd, ms, pms, nbytes, n * K3_OPS, F32_OPS)
-            print(f"  K3 {form} {shape} x{per_fwd}: {ms:.4f} ms, plain "
+                rows["k3"].add(per_fwd, ms, pms, nbytes, n * K3_OPS, F32_OPS,
+                               path=path)
+            print(f"  K3 {path} {form} {shape} x{per_fwd}: {ms:.4f} ms, plain "
                   f"{pms:.4f} ms, bound "
                   f"{bound_ms(nbytes, n * K3_OPS, F32_OPS)[0]:.4f} ms",
                   flush=True)
@@ -636,6 +713,85 @@ def main() -> int:
                 k4_case(x, w, bias, 1, f"K4 flags M={m} K={k} N={n} {v} "
                         f"{x.dtype} {w.dtype}", **v)
 
+    # ------------------------------------------------------------------ K5
+    def k5_forms(x, w, s, t, r):
+        """(label, x, w, kwargs) of the three forms checked at each shape:
+        the serving form, f32 out without ReLU, and the quantize with
+        nonneg_in and no ReLU (on non-negative inputs and taps)."""
+        return [("serve", x, w, dict(relu=True, quant_out_recip=r)),
+                ("f32", x, w, dict(relu=False, out_dtype=torch.float32)),
+                ("nonneg_in", x.abs(), w.abs(),
+                 dict(relu=False, nonneg_in=True, quant_out_recip=r))]
+
+    def k5_inputs(shape):
+        c = shape[-1]
+        x = randn(*shape, scale=2.0).to(torch.bfloat16)
+        w = randn(3, 3, c, scale=0.5)
+        s = torch.rand(c, device=dev, generator=gen) + 0.5
+        t = randn(c, scale=0.1)
+        return x, w, s, t
+
+    def k5_check(shape, r):
+        x, w, s, t = k5_inputs(shape)
+        for label, xx, ww, kw in k5_forms(x, w, s, t, r):
+            got = k5.dw3x3(xx, ww, scale=s, shift=t, **kw)
+            want = k5.dw3x3_plain(xx, ww, s, t, **kw)
+            torch.cuda.synchronize()
+            assert same_bits(got, want), f"K5 {label} {shape} not bit-equal"
+            rows["k5"].err((got.float() - want.float()).abs().max())
+        return x, w, s, t
+
+    @phase("K5 dw3x3")
+    def k5_phase():
+        r = rc[2]
+        cases = [("mobilenetv1_fused", shape, n) for shape, n in
+                 mn_sites["mobilenetv1_fused"][1].items()]
+        cases += [("mobilenetv1_fused_b256", (256,) + shape[1:], n)
+                  for _, shape, n in cases]
+        cases += [("mobilenet_fused", shape, n) for shape, n in
+                  mn_sites["mobilenet_fused"][1].items()]
+        for path, shape, per_fwd in cases:
+            x, w, s, t = k5_check(shape, r)
+            c = shape[-1]
+            ms = median_ms(lambda: k5.dw3x3(x, w, scale=s, shift=t, relu=True,
+                                            quant_out_recip=r))
+            pms = median_ms(lambda: k5.dw3x3_plain(
+                x, w, s, t, relu=True, quant_out_recip=r), iters=5, inner=1)
+            # the library call: cuDNN's grouped conv alone, on the same
+            # bf16 operands (NCHW views of channels-last memory)
+            xn = x.permute(0, 3, 1, 2)
+            wn = w.permute(2, 0, 1).unsqueeze(1).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            lms = median_ms(lambda: F.conv2d(xn, wn, padding=1, groups=c))
+            # the route it replaces (dw="torch"): f32 grouped conv of the
+            # bf16 values, then K3, under the executor's flags
+            conv = ConvKxK(w=wn.float(), scale=s, shift=t, stride=1, pad=1,
+                           groups=c)
+            with backend_flags():
+                chain = median_ms(lambda: k3.bn_epilogue(
+                    _conv_f32(x, conv), s, t, relu=True, emit_raw=False,
+                    quant_recip=r))
+            n = x.numel()
+            nbytes = n * 4 + 9 * c * 4 + 2 * c * 4
+            ops = n * (DW_OPS + K3_OPS)
+            bms, by = bound_ms(nbytes, ops, F32_OPS)
+            if not path.endswith("_b256"):
+                rows["k5"].add(per_fwd, ms, pms, nbytes, ops, F32_OPS, lms,
+                               path=path)
+            print(f"  K5 {path} {shape} x{per_fwd}: {ms:.4f} ms "
+                  f"({nbytes / ms / 1e6:.0f} GB/s), plain {pms:.4f}, "
+                  f"F.conv2d(groups=C) {lms:.4f}, grouped conv + K3 "
+                  f"{chain:.4f} (A/B speedup {chain / ms:.3f}), bound "
+                  f"{bms:.4f} ({by})", flush=True)
+        # H and W not multiples of the 8-row tile; C not a multiple of 8
+        # (the scalar path); f32 input; one pixel
+        for shape in ((3, 13, 11, 40), (2, 13, 11, 36), (4, 1, 1, 64)):
+            k5_check(shape, r)
+        x, w, s, t = k5_inputs((2, 9, 10, 24))
+        x = x.float()
+        assert same_bits(k5.dw3x3(x, w, scale=s, shift=t, relu=True),
+                         k5.dw3x3_plain(x, w, s, t, relu=True)), "K5 f32 x"
+
     # ---------------------------------------------------------------- paths
     def cos(a, b):
         a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
@@ -649,25 +805,26 @@ def main() -> int:
                 for n in (64, 64, 17)]
     fwd = len(requests)                       # one forward per request
 
-    def serve(eng, path, want):
+    def serve(eng, path, want, reqs=requests, classes=1000):
         """The path's run: counts reset just before the three requests and
         read just after; ``want`` maps wrapper -> launches per forward, every
         other wrapper must stay at 0."""
-        eng.predict(requests[0][:1])          # warm-up: cuDNN plans
+        eng.predict(reqs[0][:1])              # warm-up: cuDNN plans
         torch.cuda.synchronize()
         kernels.reset_launches()
-        logits = [eng.predict(r) for r in requests]
+        logits = [eng.predict(r) for r in reqs]
         torch.cuda.synchronize()
         counts = kernels.launches()
         print(f"  {path}: launches over {fwd} requests: {counts}", flush=True)
         for name, n in counts.items():
             assert n == fwd * want.get(name, 0), (name, counts, want)
         for key, name in (("k1", "act_quantize"), ("k2", "qmm_fused"),
-                          ("k3", "bn_epilogue"), ("k4", "fused_quant_matmul")):
+                          ("k3", "bn_epilogue"), ("k4", "fused_quant_matmul"),
+                          ("k5", "dw3x3")):
             if want.get(name):
                 rows[key].counted(path, counts[name], fwd)
-        for r, lg in zip(requests, logits):
-            assert lg.shape == (r.shape[0], 1000) and np.isfinite(lg).all()
+        for r, lg in zip(reqs, logits):
+            assert lg.shape == (r.shape[0], classes) and np.isfinite(lg).all()
         print(f"  logits[0, :4] = {logits[0][0, :4]}, top-1 of request 3: "
               f"{np.argmax(logits[2], -1)[:8]}", flush=True)
         return logits
@@ -731,11 +888,13 @@ def main() -> int:
               f"b256 {tp['slfp8_b256'] / tp['fp32_b256']:.3f}", flush=True)
         return eng, logits[0]
 
-    def images_per_s(eng, label):
+    def images_per_s(eng, label, batch=B):
         x = torch.from_numpy(rng.standard_normal(
-            (B, 224, 224, 3)).astype(np.float32)).to(dev)
-        ips = throughput(lambda: eng.forward(x), B)
-        print(f"  throughput {label}_b{B}: {ips:.1f} images/s", flush=True)
+            (batch, eng.image_size, eng.image_size, 3)).astype(
+                np.float32)).to(dev)
+        ips = throughput(lambda: eng.forward(x), batch)
+        print(f"  throughput {label}_b{batch}: {ips:.1f} images/s",
+              flush=True)
         return ips
 
     def module_path_phase(net, k4_per_fwd, k1_per_fwd):
@@ -810,6 +969,125 @@ def main() -> int:
         assert same_top1(logits[0], fused_logits)
         images_per_s(eng, "resnet_module_slfp8_packed_k4")
 
+    # ------------------------------------------------------ MobileNetV1 paths
+    cifar_requests = [rng.standard_normal((n, 32, 32, 3)).astype(np.float32)
+                      for n in (64, 64, 17)]
+
+    def derived_scales(fp32, images):
+        """Scales for random weights, the reference's recipe: absmax of each
+        quantized layer's input and weight over one float32 forward of the
+        same weights, divided by 15.5.  Forward hooks read them; the
+        package's calibration is ROADMAP work."""
+        from cnns_slfp_quantization_tpu_torch.ops.freeze import quant_layers
+
+        ka, kw, hooks = {}, {}, []
+        for _, layer in quant_layers(fp32.model):
+            def hook(m, inp, out):
+                i = m.layer_id
+                ka[i] = max(ka.get(i, 0.0), float(inp[0].abs().max()))
+                kw[i] = float(m.weight.abs().max())
+            hooks.append(layer.register_forward_hook(hook))
+        fp32.predict(images)
+        for h in hooks:
+            h.remove()
+        n = max(ka) + 1
+        assert sorted(ka) == list(range(n)), sorted(ka)
+        return calib.ScaleSet(ka=np.array([ka[i] for i in range(n)]) / 15.5,
+                              kw=np.array([kw[i] for i in range(n)]) / 15.5,
+                              divisor=15.5, source="chip_smoke.py absmax")
+
+    def mobilenet_fused_phase(net, path, want, reqs, classes):
+        """The fused executor of ``net`` with derived scales: the path's
+        run, the CPU, packed weights; returns (engine, scales, logits of
+        request 0, the float32 engine)."""
+        fp32 = InferenceEngine(net, qbit=32, batch_size=B, seed=0,
+                               compute_dtype=None)
+        assert np.isfinite(fp32.predict(reqs[0][:8])).all()
+        sc = derived_scales(fp32, reqs[0])
+        print(f"  derived scales: ka {np.round(sc.ka[:4], 4)}..., kw "
+              f"{np.round(sc.kw[:4], 4)}...", flush=True)
+        eng = InferenceEngine(net, qbit=8, batch_size=B, seed=0, scales=sc)
+        assert eng.fused
+        logits = serve(eng, path, want, reqs, classes)
+
+        t0 = time.perf_counter()
+        cpu = InferenceEngine(net, qbit=8, batch_size=2, seed=0, scales=sc,
+                              device="cpu")
+        got = cpu.predict(reqs[0][:2])
+        c = cos(got, logits[0][:2])
+        print(f"  CPU plain path on 2 images: cos {c:.6f}, top-1 "
+              f"{np.argmax(got, -1)} vs {np.argmax(logits[0][:2], -1)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        assert c > 0.995
+        assert same_top1(got, logits[0][:2])
+
+        packed = InferenceEngine(net, qbit=8, batch_size=B, seed=0,
+                                 scales=sc, pack_weights=True)
+        lp = packed.predict(reqs[0])
+        assert np.array_equal(lp.view(np.int32), logits[0].view(np.int32)), \
+            "packed logits differ from float-frozen"
+        print("  packed uint8 weights: logits bit-equal", flush=True)
+        del packed
+        return eng, sc, logits[0], fp32
+
+    def throughputs(eng, fp32, label, batches):
+        tp = {}
+        for bs in batches:
+            tp[f"slfp8_b{bs}"] = images_per_s(eng, f"{label}_slfp8", bs)
+            tp[f"fp32_b{bs}"] = images_per_s(fp32, f"{label}_fp32", bs)
+        print(f"  {label} SLFP8 / fp32: " + ", ".join(
+            f"b{bs} {tp[f'slfp8_b{bs}'] / tp[f'fp32_b{bs}']:.3f}"
+            for bs in batches), flush=True)
+
+    @phase("path: InferenceEngine mobilenetv1 SLFP8 fused executor (K5)")
+    def mobilenetv1_phase():
+        eng, sc, logits, fp32 = mobilenet_fused_phase(
+            "mobilenetv1", "mobilenetv1_fused",
+            {"act_quantize": 1, "bn_epilogue": 18, "dw3x3": 9}, requests,
+            1000)
+        torch_route = InferenceEngine("mobilenetv1", qbit=8, batch_size=B,
+                                      seed=0, scales=sc,
+                                      policy={"dw": "torch"})
+        torch_route.predict(requests[0][:1])
+        kernels.reset_launches()
+        lt = torch_route.predict(requests[0])
+        counts = kernels.launches()
+        assert (counts["bn_epilogue"], counts["dw3x3"]) == (27, 0), counts
+        ct = cos(lt, logits)
+        print(f"  policy dw=torch: {counts}, cos {ct:.6f}", flush=True)
+        assert ct > 0.995
+        assert same_top1(lt, logits)
+        throughputs(eng, fp32, "mobilenetv1_fused", (64, 256))
+        images_per_s(torch_route, "mobilenetv1_fused_dw_torch_slfp8")
+        return eng, sc, logits, fp32, torch_route
+
+    @phase("path: InferenceEngine mobilenet (CIFAR) SLFP8 fused executor")
+    def mobilenet_cifar_phase():
+        eng, _, _, fp32 = mobilenet_fused_phase(
+            "mobilenet", "mobilenet_fused",
+            {"act_quantize": 2, "bn_epilogue": 18, "dw3x3": 9},
+            cifar_requests, 100)
+        throughputs(eng, fp32, "mobilenet_fused", (64, 256))
+
+    @phase("path: InferenceEngine mobilenetv1 SLFP8 module path (K4)")
+    def mobilenetv1_module_phase(sc, fused_logits, fp32):
+        eng = InferenceEngine("mobilenetv1", qbit=8, batch_size=B, seed=0,
+                              scales=sc, pack_weights=True, use_pallas=None,
+                              fused=False)
+        assert not eng.fused
+        logits = serve(eng, "mobilenetv1_module",
+                       {"fused_quant_matmul": 13, "act_quantize": 14})
+        got, want = logits[0], fused_logits
+        c = cos(got, want)
+        diff = np.abs(got - want).max()
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        decisive = (top2[:, 1] - top2[:, 0]) > 3 * diff
+        print(f"  against the fused executor: cos {c:.6f}, "
+              f"{int(decisive.sum())} decisive rows", flush=True)
+        assert c > 0.98
+        assert (np.argmax(got, -1) == np.argmax(want, -1))[decisive].all()
+        throughputs(eng, fp32, "mobilenetv1_module_packed_k4", (B,))
+
     def where_the_time_goes(eng, label, fwd=3):
         """Device time per forward at batch 64 by kernel, from
         torch.profiler, and the share of the wall time with no kernel
@@ -859,6 +1137,7 @@ def main() -> int:
     k2_phase()
     k3_phase()
     k4_phase()
+    k5_phase()
     fused = slice_phase()
     sq = squeezenet_phase()
     alexnet_phase()
@@ -866,8 +1145,16 @@ def main() -> int:
         resnet_module_phase(fused[1])
     else:
         failures.append("resnet module path: no fused logits to compare")
+    mn = mobilenetv1_phase()
+    mobilenet_cifar_phase()
+    if mn is not None:
+        mobilenetv1_module_phase(*mn[1:4])
+    else:
+        failures.append("mobilenetv1 module path: no fused logits to compare")
     for eng, label in ((fused and fused[0], "resnet fused"),
-                       (sq, "squeezenet module path")):
+                       (sq, "squeezenet module path"),
+                       (mn and mn[0], "mobilenetv1 fused"),
+                       (mn and mn[4], "mobilenetv1 fused, dw=torch")):
         if eng is None:
             continue
         try:

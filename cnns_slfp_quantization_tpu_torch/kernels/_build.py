@@ -24,7 +24,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("quantize", "qmm", "epilogue", "fused_matmul")
+SOURCES = ("quantize", "qmm", "epilogue", "fused_matmul", "depthwise")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -47,6 +47,10 @@ SIGNATURES = {
         "slfp_fused_matmul": (_P, _I, _LL, _I, _LL, _LL, _LL, _P, _I, _I,
                               _P, _P, _I, _LL, _I, _I, _I, _F, _I, _F, _F,
                               _I, _P),
+    },
+    "depthwise": {
+        "slfp_dw3x3": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _I, _I, _P),
     },
 }
 

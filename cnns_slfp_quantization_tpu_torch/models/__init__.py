@@ -1,6 +1,7 @@
 """Model registry of the port (counterpart of the JAX ``models/__init__.py``).
 
-Ported so far: ResNet-50, SqueezeNet 1.0 and AlexNet (ImageNet); the rest
+Ported so far: MobileNetV1 (CIFAR ``mobilenet`` and ``mobilenet_swish``,
+ImageNet ``mobilenetv1``), ResNet-50, SqueezeNet 1.0 and AlexNet; the rest
 of the zoo is ROADMAP Queue 1 item 6.
 """
 
@@ -27,6 +28,22 @@ def create_model(name: str, qbit: int = 32, *,
     common = dict(qbit=qbit, frozen_weights=frozen_weights,
                   compute_dtype=compute_dtype, use_pallas=use_pallas,
                   generator=generator, num_classes=num_classes or 1000)
+    if name in ("mobilenet", "cifar/mobilenet", "mobilenet_swish",
+                "cifar/mobilenet_swish", "mobilenetv1", "imgnet/mobilenetv1"):
+        from cnns_slfp_quantization_tpu_torch.models import mobilenetv1
+
+        kind = name.split("/")[-1]
+        if kind == "mobilenetv1":
+            return mobilenetv1.MobileNetV1(
+                scales=scales or calib.load_scales("mobilenetv1_imgnet"),
+                quant_classifier=False, **common)
+        common["num_classes"] = num_classes or 100
+        if kind == "mobilenet_swish":
+            return mobilenetv1.MobileNetV1(
+                scales=scales or calib.load_scales("mobilenetv1_swish_cifar"),
+                swish_tail=4, layerout_quant=True, **common)
+        return mobilenetv1.MobileNetV1(
+            scales=scales or calib.load_scales("mobilenetv1_cifar"), **common)
     if name in ("resnet", "resnet50", "imgnet/resnet"):
         from cnns_slfp_quantization_tpu_torch.models import resnet50
 
@@ -50,8 +67,8 @@ def create_model(name: str, qbit: int = 32, *,
 
 # the ported names, keyed by dataset as in the JAX registry
 MODEL_NAMES = {
-    "cifar": [],
-    "imgnet": ["resnet", "alexnet", "squeezenet"],
+    "cifar": ["mobilenet", "mobilenet_swish"],
+    "imgnet": ["mobilenetv1", "resnet", "alexnet", "squeezenet"],
 }
 
 INPUT_SIZE = {"cifar": 32, "imgnet": 224}

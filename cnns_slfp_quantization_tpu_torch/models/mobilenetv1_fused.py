@@ -1,0 +1,192 @@
+"""Fused SLFP8 MobileNetV1 inference executor (counterpart of the JAX
+``models/mobilenetv1_fused.py::fused_apply``), for the ReLU variants: CIFAR
+``mobilenet`` (quantized classifier) and ImageNet ``mobilenetv1`` (float32
+classifier).  The Swish / layer-output variant keeps the module path, as in
+JAX.
+
+:func:`prepare` turns a frozen (or packed) :class:`MobileNetV1` into
+:class:`FusedWeights` once: BatchNorm folded with Ka*Kw into per-channel
+``scale``/``shift`` (``resnet50_fused.bn_fold``), uint8 codes decoded, the
+depthwise taps as ``[3, 3, C]`` float32 for K5 beside their OIHW form, the
+pointwise kernels as ``[Cin, Cout]``.  :func:`fused_apply` then runs the
+network on NHWC activations, each conv's epilogue emitting the next conv's
+quantized input:
+
+  stem       K1 signed quantize -> 3x3/s2 conv (cuDNN, f32 out) -> K3
+             (BN, ReLU, quantize for block 0's depthwise conv)
+  depthwise  stride 1 with ``dw="kernel"``: K5 (conv, BN, ReLU, quantize for
+             the pointwise conv in one pass); stride 2, or ``dw="torch"``:
+             grouped conv (cuDNN, f32 out) -> K3
+  pointwise  f32 matmul -> K3 (BN, ReLU, quantize for the next depthwise
+             conv); the last block's K3 writes raw bf16
+  head       f32 mean -> ImageNet: f32 ``x @ W + b``; CIFAR: K1 -> f32
+             matmul -> ``(y + b/kaw) * kaw`` in bf16
+
+``dw="torch"`` is JAX's own placement (XLA's grouped conv,
+``mobilenetv1_fused.py:72``); JAX reaches its depthwise kernel only from
+its A/B tool.  The convolutions and matmuls take float32 tensors that hold
+bf16 values, as in :mod:`.resnet50_fused`, under the same numerics flags.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cnns_slfp_quantization_tpu_torch.kernels import depthwise as k5
+from cnns_slfp_quantization_tpu_torch.kernels import epilogue as k3
+from cnns_slfp_quantization_tpu_torch.kernels.quantize import act_quantize
+from cnns_slfp_quantization_tpu_torch.models.mobilenetv1 import (
+    DW_CONFIG,
+    FC_ID,
+    MobileNetV1,
+)
+from cnns_slfp_quantization_tpu_torch.models.resnet50_fused import (
+    ConvKxK,
+    _bf16_values,
+    _conv_f32,
+    _flat,
+    _s2d_stem,
+    _s2d_weight,
+    bn_fold,
+)
+from cnns_slfp_quantization_tpu_torch.ops import sfp
+from cnns_slfp_quantization_tpu_torch.ops.backend import (
+    backend_flags,
+    full_f32_matmul,
+)
+from cnns_slfp_quantization_tpu_torch.ops.layers import QuantDense
+
+DEFAULT_POLICY = {"dw": "kernel"}
+
+
+@dataclasses.dataclass
+class FusedWeights:
+    stem: ConvKxK          # 3x3/s2/p1, OIHW
+    stem_s2d: ConvKxK      # the same, a 2x2/s1 conv on a space-to-depth input
+    dw: list               # per block: ConvKxK (grouped, OIHW) ...
+    dw_taps: list          # ... and its taps [3, 3, C] float32, for K5
+    pw: list               # per block: (w [Cin, Cout] f32, scale, shift)
+    fc_w: torch.Tensor     # [1024, classes] float32 (bf16 values if quantized)
+    fc_b: torch.Tensor     # bias, or float32(b) / float32(kaw) if quantized
+    kaw_fc: Optional[torch.Tensor]   # float32 0-d, quantized classifier only
+    quant_classifier: bool
+    recips: list           # recips[i] = 1/Ka as JAX computes it
+
+
+def prepare(model: MobileNetV1, *, device="cuda") -> FusedWeights:
+    """Fold and lay out a frozen SLFP8 ReLU MobileNetV1 for
+    :func:`fused_apply`."""
+    if model.swish_tail or model.layerout_quant:
+        raise ValueError("the fused executor serves the ReLU variants; the "
+                         "Swish / layer-output variant runs the module path")
+    for _, layer in model.named_children():
+        if hasattr(layer, "frozen_weights") and not layer.frozen_weights:
+            raise ValueError("fused executor needs frozen weights "
+                             "(ops.freeze.prequantize or pack)")
+    ka, kw = model.scales.ka, model.scales.kw
+
+    def vec(a):
+        return torch.from_numpy(a).to(device)
+
+    def conv_kxk(i, w=None, stride=None, pad=None):
+        conv = getattr(model, f"conv{i}")
+        s, t = bn_fold(getattr(model, f"bn{i}"), float(ka[i]) * float(kw[i]))
+        w = _bf16_values(conv.weight).float() if w is None else w
+        return ConvKxK(
+            w=w.to(device).contiguous(memory_format=torch.channels_last),
+            scale=vec(s), shift=vec(t),
+            stride=conv.stride if stride is None else stride,
+            pad=conv.padding if pad is None else pad, groups=conv.groups)
+
+    stem = conv_kxk(0)
+    stem_s2d = conv_kxk(0, w=_s2d_weight(stem.w.cpu()), stride=1, pad=0)
+    dw, dw_taps, pw = [], [], []
+    for b in range(len(DW_CONFIG)):
+        c = conv_kxk(1 + 2 * b)
+        dw.append(c)
+        # OIHW [C, 1, 3, 3] -> [3, 3, C]
+        dw_taps.append(c.w[:, 0].permute(1, 2, 0).contiguous())
+        p = conv_kxk(2 + 2 * b)
+        pw.append((p.w[:, :, 0, 0].t().contiguous(), p.scale, p.shift))
+    quant_fc = isinstance(model.fc, QuantDense)
+    fc_b = model.fc.bias.detach().cpu().numpy().astype(np.float32)
+    if quant_fc:
+        kaw = np.float32(float(ka[FC_ID]) * float(kw[FC_ID]))
+        fc_w = _bf16_values(model.fc.weight).float()
+        fc_b, kaw_fc = fc_b / kaw, torch.tensor(kaw, device=device)
+    else:
+        fc_w, kaw_fc = model.fc.weight.detach().float(), None
+    return FusedWeights(
+        stem=stem, stem_s2d=stem_s2d, dw=dw, dw_taps=dw_taps, pw=pw,
+        fc_w=fc_w.t().contiguous().to(device),
+        fc_b=vec(fc_b.astype(np.float32)), kaw_fc=kaw_fc,
+        quant_classifier=quant_fc, recips=[sfp.recip_of(a) for a in ka])
+
+
+def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
+                policy: Optional[dict] = None,
+                quant_classifier: Optional[bool] = None,
+                s2d_stem: bool = False) -> torch.Tensor:
+    """SLFP8 MobileNetV1 logits for NHWC float32 images: bf16 with the
+    quantized classifier, float32 with the plain one (as JAX).
+    ``quant_classifier`` defaults to the prepared model's; another value
+    raises."""
+    pol = dict(DEFAULT_POLICY, **(policy or {}))
+    for key, val in pol.items():
+        if key not in DEFAULT_POLICY or val not in ("kernel", "torch"):
+            raise ValueError(f"policy {key}={val!r}: key dw, values 'kernel' "
+                             f"or 'torch'")
+    if quant_classifier is not None and quant_classifier != fw.quant_classifier:
+        raise ValueError(f"quant_classifier={quant_classifier}, but the "
+                         f"prepared model's classifier is "
+                         f"{'quantized' if fw.quant_classifier else 'float'}")
+    with backend_flags():
+        return _fused_apply(fw, x, pol["dw"] == "kernel", s2d_stem)
+
+
+def _fused_apply(fw: FusedWeights, x: torch.Tensor, dw_kernel: bool,
+                 s2d_stem: bool):
+    rc = fw.recips
+    # --- stem: 3x3/s2/p1, signed input quantize ----------------------------
+    xq = act_quantize(x, rc[0], nonneg=False)
+    if s2d_stem:
+        y = _s2d_stem(xq, fw.stem_s2d, 3, pad=1)
+    else:
+        y = _conv_f32(xq, fw.stem)
+    _, y = k3.bn_epilogue(y, fw.stem.scale, fw.stem.shift, relu=True,
+                          emit_raw=False, quant_recip=rc[1])
+
+    # --- 13 depthwise-separable blocks -------------------------------------
+    last = len(DW_CONFIG) - 1
+    for b, (_, _, stride) in enumerate(DW_CONFIG):
+        i_dw, i_pw = 1 + 2 * b, 2 + 2 * b
+        d = fw.dw[b]
+        if stride == 1 and dw_kernel:
+            y = k5.dw3x3(y, fw.dw_taps[b], scale=d.scale, shift=d.shift,
+                         relu=True, quant_out_recip=rc[i_pw])
+        else:
+            _, y = k3.bn_epilogue(_conv_f32(y, d), d.scale, d.shift,
+                                  relu=True, emit_raw=False,
+                                  quant_recip=rc[i_pw])
+        w, s, t = fw.pw[b]
+        lead = y.shape[:-1]
+        z = (_flat(y).to(torch.float32) @ w).reshape(*lead, w.shape[1])
+        # the classifier quantizes after pooling (the reference pools raw
+        # activations), so the last block writes raw bf16
+        raw, q = k3.bn_epilogue(z, s, t, relu=True, emit_raw=b == last,
+                                quant_recip=None if b == last else rc[i_dw + 2])
+        y = raw if b == last else q
+
+    # --- head: mean over H and W, then the classifier ----------------------
+    xa = torch.mean(y.to(torch.float32), dim=(1, 2))
+    if not fw.quant_classifier:
+        with full_f32_matmul():
+            return xa @ fw.fc_w + fw.fc_b
+    xq = act_quantize(xa, rc[FC_ID])
+    y = xq.to(torch.float32) @ fw.fc_w
+    return ((y + fw.fc_b) * fw.kaw_fc).to(torch.bfloat16)

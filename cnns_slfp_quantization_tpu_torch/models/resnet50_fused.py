@@ -79,6 +79,7 @@ class ConvKxK:
     shift: torch.Tensor
     stride: int
     pad: int
+    groups: int = 1
 
 
 @dataclasses.dataclass
@@ -176,7 +177,7 @@ def prepare(model: ResNet50, *, device="cuda") -> FusedWeights:
 def _conv_f32(xq: torch.Tensor, c: ConvKxK) -> torch.Tensor:
     """NHWC bf16 values -> NHWC float32 conv output (cuDNN, channels last)."""
     x = xq.to(torch.float32).permute(0, 3, 1, 2)
-    y = F.conv2d(x, c.w, stride=c.stride, padding=c.pad)
+    y = F.conv2d(x, c.w, stride=c.stride, padding=c.pad, groups=c.groups)
     return y.permute(0, 2, 3, 1).contiguous()
 
 

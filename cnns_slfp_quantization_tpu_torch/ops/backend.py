@@ -33,3 +33,16 @@ def backend_flags():
             yield
         finally:
             torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """True float32 matmuls inside :func:`backend_flags`, for operands that
+    are not bf16 values (the fp32 ImageNet classifier): TF32 would round
+    them to 10 mantissa bits."""
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32

@@ -53,10 +53,12 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def he_normal_(w: torch.Tensor, fan_in: int,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               scale: float = 2.0) -> torch.Tensor:
     """flax's ``he_normal``: truncated normal (+-2 sigma) of variance
-    2/fan_in, sigma corrected for the truncation."""
-    std = float(np.sqrt(2.0 / fan_in) / 0.87962566103423978)
+    scale/fan_in, sigma corrected for the truncation; ``scale=1`` is
+    ``lecun_normal``, flax ``Dense``'s default."""
+    std = float(np.sqrt(scale / fan_in) / 0.87962566103423978)
     return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                                  generator=generator)
 
@@ -137,10 +139,13 @@ class _QuantBase(nn.Module):
 
 
 class QuantConv(_QuantBase):
-    """Quantized 2-D convolution with per-tensor max scaling (NCHW)."""
+    """Quantized 2-D convolution with per-tensor max scaling (NCHW).
+    ``groups`` is JAX's ``feature_group_count``: the weight is ``[features,
+    in_features/groups, k, k]``."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int, *,
-                 stride: int = 1, padding: int = 0, use_bias: bool = False,
+                 stride: int = 1, padding: int = 0, groups: int = 1,
+                 use_bias: bool = False,
                  qbit: int = 32, ka: float = 1.0, kw: float = 1.0,
                  frozen_weights: bool = False, nonneg_input: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
@@ -150,8 +155,9 @@ class QuantConv(_QuantBase):
                          compute_dtype, layer_id, use_pallas)
         self.stride = stride
         self.padding = padding
+        self.groups = groups
         self.weight = nn.Parameter(torch.empty(
-            features, in_features, kernel_size, kernel_size))
+            features, in_features // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def reset_parameters(self, generator=None):
@@ -165,7 +171,7 @@ class QuantConv(_QuantBase):
         """JAX ``QuantConv._pallas_eligible``."""
         return (self.use_pallas is not False and self.qbit == 8
                 and self.weight.shape[-2:] == (1, 1) and self.padding == 0
-                and self.k4_wanted(x))
+                and self.groups == 1 and self.k4_wanted(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.uses_k4(x):
@@ -175,7 +181,8 @@ class QuantConv(_QuantBase):
                 stride=self.stride, **self.k4_args())
             return y.permute(0, 3, 1, 2)
         xq, wq = self.operands(x)
-        y = F.conv2d(xq, wq, stride=self.stride, padding=self.padding)
+        y = F.conv2d(xq, wq, stride=self.stride, padding=self.padding,
+                     groups=self.groups)
         return self.rescale(y)
 
 
@@ -212,3 +219,16 @@ class QuantDense(_QuantBase):
                                             **self.k4_args())
         xq, wq = self.operands(x)
         return self.rescale(xq @ wq.t())
+
+
+class LayeroutQuant(nn.Module):
+    """SFP<4,4> layer-output quantizer (reference sfp_quant.py:163-175),
+    with the reference's subnormal branch as it is (``bug_compat``): no
+    model asks for the other."""
+
+    def __init__(self, qbit: int = 32):
+        super().__init__()
+        self.qbit = qbit
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return sfp.quantize_layerout(x, self.qbit)

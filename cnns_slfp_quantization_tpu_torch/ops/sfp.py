@@ -28,6 +28,7 @@ PSEUDO_ZERO = np.float32(1e-10)
 SFP33_MAX = np.float32(15.0)
 # Reference clamp literal (sfp_quant.py:46), just below 2**(3 + 15/16).
 SLFP34_CLAMP = np.float32(15.32165)
+SFP44_MAX = np.float32(248.0)
 SUBNORMAL_LO = np.float32(0.0625)
 SUBNORMAL_HI = np.float32(0.125)
 
@@ -125,12 +126,32 @@ def _pow2i(e: torch.Tensor) -> torch.Tensor:
     return ((e + 127) << 23).to(torch.int32).view(torch.float32)
 
 
-def _table(t: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(t)).to(device)
+# the constant tables the quantizers index, by name
+_TABLES = {
+    "exp2_16": _EXP2_16,
+    "log_bin_bounds": _LOG_BIN_BOUNDS,
+    "pseudo_zero": np.asarray(PSEUDO_ZERO, np.float32),
+    "p_table": np.asarray(_P_TABLE, np.int32),
+}
+_on_device: dict = {}
+
+
+def _table(name: str, device) -> torch.Tensor:
+    """Constant table ``name`` on ``device``, copied there once per device:
+    a copy from host memory on every call would block the host until the
+    card drained its queue."""
+    key = (name, torch.device(device))
+    t = _on_device.get(key)
+    if t is None:
+        # an ordinary tensor even when first asked for under inference_mode
+        with torch.inference_mode(False):
+            t = torch.from_numpy(_TABLES[name].copy()).to(device)
+        _on_device[key] = t
+    return t
 
 
 def _apply_boundaries(ax, out, *, clamp, clamp_ge):
-    pz = torch.tensor(float(PSEUDO_ZERO), dtype=torch.float32, device=ax.device)
+    pz = _table("pseudo_zero", ax.device)
     out = torch.where(ax < float(SUBNORMAL_LO), pz, out)
     out = torch.where((ax >= float(SUBNORMAL_LO)) & (ax < float(SUBNORMAL_HI)),
                       torch.full_like(out, float(SUBNORMAL_HI)), out)
@@ -146,9 +167,9 @@ def _sfp33_abs(ax):
 
 def _slfp34_weight_abs(ax):
     m, e = _frexp_1_2(ax)
-    bounds = _table(_LOG_BIN_BOUNDS, ax.device)
+    bounds = _table("log_bin_bounds", ax.device)
     idx = (m.unsqueeze(-1) >= bounds).sum(-1)
-    mq = _table(_EXP2_16, ax.device)[idx]
+    mq = _table("exp2_16", ax.device)[idx]
     return _apply_boundaries(ax, mq * _pow2i(e), clamp=SLFP34_CLAMP,
                              clamp_ge=False)
 
@@ -157,14 +178,30 @@ def _slfp34_act_abs(ax):
     m, e = _frexp_1_2(ax)
     j = (torch.round(m * 16.0) - 16.0).to(torch.int32)  # 0..16, exact
     ml = j + ((torch.full_like(j, _ML_MAGIC) >> j) & 1)
-    mq = _table(_EXP2_16, ax.device)[ml.long()]
+    mq = _table("exp2_16", ax.device)[ml.long()]
     return _apply_boundaries(ax, mq * _pow2i(e), clamp=SLFP34_CLAMP,
                              clamp_ge=False)
 
 
+def _sfp44_abs(ax, bug_compat: bool):
+    """|x| -> SFP<4,4> value (reference sfp_quant.py:105-127)."""
+    m, e = _frexp_1_2(ax)
+    q = torch.round(m * 16.0) * 0.0625
+    # two steps keep 2**e a normal float for every exponent of a normal x
+    out = torch.where(ax == 0, 0.0, (q * _pow2i(e + 64)) * 2.0**-64)
+    if not bug_compat:
+        lo, hi = 2.0**-8, 2.0**-7
+        out = torch.where(ax < lo, _table("pseudo_zero", ax.device), out)
+        out = torch.where((ax >= lo) & (ax < hi), hi, out)
+    return torch.where(ax >= float(SFP44_MAX), float(SFP44_MAX), out)
+
+
 def _signed(fn, x):
     x32 = flush_subnormals(x.to(torch.float32))
-    return (torch.sign(x32) * fn(torch.abs(x32))).to(x.dtype)
+    # JAX's sign keeps the sign of zero (torch.sign(-0.0) is +0.0), so a
+    # -0.0 input gives -0.0 times the quantized magnitude
+    sign = torch.copysign(torch.sign(x32), x32)
+    return (sign * fn(torch.abs(x32))).to(x.dtype)
 
 
 class _STE(torch.autograd.Function):
@@ -200,6 +237,22 @@ def quantize_weight(x: torch.Tensor, qbit: int) -> torch.Tensor:
 def quantize_act(x: torch.Tensor, qbit: int) -> torch.Tensor:
     """SFP<3,3> (qbit 7) / SLFP<3,4> (qbit 8) activations; qbit 32 passes."""
     return _quantize(x, qbit, _ACT_FN)
+
+
+def quantize_layerout(x: torch.Tensor, qbit: int, *,
+                      bug_compat: bool = True) -> torch.Tensor:
+    """SFP<4,4> layer outputs for any qbit <= 8; qbit 32 passes.
+
+    ``bug_compat=True`` keeps the reference's dead subnormal branch
+    (sfp_quant.py:122-123 writes ``2^(-8)``, an XOR); ``False`` applies the
+    intended ``2**-8`` / ``2**-7`` thresholds.  Exact zero gives 0.0 where
+    the reference gives NaN.
+    """
+    if qbit == 32:
+        return x
+    if qbit > 8:
+        raise ValueError(f"unsupported qbit {qbit} (expected <=8 or 32)")
+    return _STE.apply(x, functools.partial(_sfp44_abs, bug_compat=bug_compat))
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +308,7 @@ def slfp34_act_bits(x: torch.Tensor) -> torch.Tensor:
     r = (ab + 0x3FFFF + lsb) & -0x80000
     j = (r >> 19) & 15
     ml = j + ((torch.full_like(j, _ML_MAGIC) >> j) & 1)
-    p = torch.tensor(_P_TABLE, dtype=torch.int32, device=x.device)[ml.long()]
+    p = _table("p_table", x.device)[ml.long()]
     out = (r & -0x00800000) | p
     small = torch.where(ab == 0, 0, _f32_bits(1e-10)).to(torch.int32)
     out = torch.where(ab < I32_LO, small, out)
@@ -301,7 +354,7 @@ def pack_slfp34(q: torch.Tensor) -> torch.Tensor:
     sign = (x32 < 0).to(torch.int32) << 7
     ax = torch.abs(x32)
     m, e = _frexp_1_2(ax)
-    idx = (m.unsqueeze(-1) >= _table(_LOG_BIN_BOUNDS, q.device)).sum(-1)
+    idx = (m.unsqueeze(-1) >= _table("log_bin_bounds", q.device)).sum(-1)
     code7 = torch.clamp((e + 4) * 16 + idx.to(torch.int32), 0, 127)
     code7 = torch.where(ax < float(SUBNORMAL_HI), 0, code7)
     return (sign | code7).to(torch.uint8)
@@ -313,7 +366,7 @@ def unpack_slfp34(codes: torch.Tensor,
     c = codes.to(torch.int32)
     code7 = c & 0x7F
     sign = torch.where((c & 0x80) != 0, -1.0, 1.0)
-    val = _table(_EXP2_16, codes.device)[(code7 & 15).long()] * _pow2i(
+    val = _table("exp2_16", codes.device)[(code7 & 15).long()] * _pow2i(
         (code7 >> 4) - 4)
     val = torch.where(code7 == 0, 0.0, val)
     return (sign * val).to(dtype)
@@ -325,7 +378,7 @@ def slfp34_decode_bits(codes: torch.Tensor) -> torch.Tensor:
     c = codes.to(torch.int32)
     code7 = c & 0x7F
     sign = torch.where((c & 0x80) != 0, _as_i32(0x80000000), 0).to(torch.int32)
-    p = torch.tensor(_P_TABLE, dtype=torch.int32, device=codes.device)
+    p = _table("p_table", codes.device)
     bits = (((code7 >> 4) - 4 + 127) << 23) | p[(code7 & 15).long()]
     bits = torch.where(code7 == 0, 0, bits).to(torch.int32)
     return (bits | sign).view(torch.float32)

@@ -1,5 +1,6 @@
 """Quantized-inference engine of the port (counterpart of the JAX
-``serve.py::InferenceEngine``), for ResNet-50, SqueezeNet 1.0 and AlexNet.
+``serve.py::InferenceEngine``), for MobileNetV1 (CIFAR and ImageNet),
+ResNet-50, SqueezeNet 1.0 and AlexNet.
 
     engine = InferenceEngine("resnet", qbit=8)        # on the card
     logits = engine.predict(images_nhwc)               # any batch size
@@ -7,7 +8,8 @@
 
 qbit 8 freezes the weights once (bf16 values, or uint8 SLFP<3,4> codes with
 ``pack_weights=True``) and serves them either through the fused executor
-(``fused``; ResNet-50 only, the default there) or through the module path
+(``fused``; ResNet-50 and the ReLU MobileNetV1 variants, the default
+there) or through the module path
 (``create_model(..., frozen_weights=True, use_pallas=...)``), where
 ``use_pallas`` routes the 1x1 convs and dense layers to K4 as in JAX.
 qbit 32 runs the module path unquantized.  The engine runs on
@@ -17,6 +19,7 @@ card the default raises.
 
 from __future__ import annotations
 
+import importlib
 from typing import Optional
 
 import numpy as np
@@ -26,8 +29,16 @@ from cnns_slfp_quantization_tpu_torch import calib, models
 from cnns_slfp_quantization_tpu_torch.ops import freeze
 from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
 
-# nets with a fused executor (JAX serve.py:63-70, over the ported nets)
-FUSABLE = ("resnet", "resnet50", "imgnet/resnet")
+# nets with a fused executor -> its module (JAX serve.py:63-70, over the
+# ported nets): CIFAR mobilenet has a quantized classifier, ImageNet
+# mobilenetv1 a float32 one; mobilenet_swish keeps the module path
+FUSABLE = {
+    "resnet": "resnet50_fused", "resnet50": "resnet50_fused",
+    "imgnet/resnet": "resnet50_fused",
+    "mobilenet": "mobilenetv1_fused", "cifar/mobilenet": "mobilenetv1_fused",
+    "mobilenetv1": "mobilenetv1_fused",
+    "imgnet/mobilenetv1": "mobilenetv1_fused",
+}
 
 
 class InferenceEngine:
@@ -55,10 +66,12 @@ class InferenceEngine:
         the same on every device.  ``scales``: a calib.ScaleSet or a path to
         a scale JSON; the shipped constants otherwise.
 
-        ``fused=None`` picks the fused executor for SLFP8 ResNet-50 unless
-        the caller asks for K4 (``use_pallas=True``) or float32 numerics
-        (``compute_dtype=None``); ``fused=True`` on another net or qbit
-        raises.  ``policy`` goes to the fused executor."""
+        ``fused=None`` picks the fused executor for SLFP8 ResNet-50 and
+        MobileNetV1 unless the caller asks for K4 (``use_pallas=True``) or
+        float32 numerics (``compute_dtype=None``); ``fused=True`` on another
+        net or qbit raises.  ``policy`` goes to the fused executor (keys
+        ``conv1``/``conv3`` for ResNet-50, ``dw`` for MobileNetV1).
+        ``image_size`` defaults to 32 for the CIFAR nets, 224 otherwise."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -76,14 +89,15 @@ class InferenceEngine:
                      and compute_dtype == torch.bfloat16)
         elif fused and not (fusable and qbit == 8):
             raise ValueError(
-                f"fused=True requires net in {FUSABLE} and qbit=8 (the "
+                f"fused=True requires net in {sorted(FUSABLE)} and qbit=8 (the "
                 f"fused executor consumes SLFP<3,4> frozen weights, float "
                 f"or packed uint8); got {net!r}, qbit {qbit}")
         self.fused = fused
         self.qbit = qbit
         self.batch_size = batch_size
         self.image_size = image_size or (
-            models.INPUT_SIZE["cifar"] if net in models.MODEL_NAMES["cifar"]
+            models.INPUT_SIZE["cifar"]
+            if net.split("/")[-1] in models.MODEL_NAMES["cifar"]
             else models.INPUT_SIZE["imgnet"])
         self.policy = policy
         if generator is None:
@@ -104,10 +118,10 @@ class InferenceEngine:
                     model, torch.bfloat16 if fused else
                     compute_dtype or torch.float32)
         if fused:
-            from cnns_slfp_quantization_tpu_torch.models import resnet50_fused
-
-            self.executor = resnet50_fused.prepare(model, device=self.device)
-            self._forward = lambda x: resnet50_fused.fused_apply(
+            executor = importlib.import_module(
+                f"cnns_slfp_quantization_tpu_torch.models.{FUSABLE[net]}")
+            self.executor = executor.prepare(model, device=self.device)
+            self._forward = lambda x: executor.fused_apply(
                 self.executor, x, policy=self.policy)
         else:
             self.model = model.to(self.device)

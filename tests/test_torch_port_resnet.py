@@ -265,7 +265,7 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 def test_create_model_names_unported_models():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.create_model("mobilenet")
+        tmodels.create_model("vgg16")
 
 
 def _imports(path: pathlib.Path):
