@@ -22,14 +22,27 @@
    (ImageNet at batch 64 and 256, CIFAR at 64) in three forms (serving:
    bf16, ReLU, quantize; f32 out without ReLU; nonneg_in without ReLU) and
    at odd shapes, and is timed against cuDNN's grouped conv alone and
-   against the grouped conv + K3 chain it replaces.  Times are medians of
-   20 runs of 5 back-to-back calls between CUDA events.
+   against the grouped conv + K3 chain it replaces.  K6 (the bottleneck
+   chain) must be bit-equal on exact inputs (every sum exact in float32) at
+   narrow widths, odd shapes and every site of the chain path (stages 2 and
+   3 at batch 64, and stage 1, which the kernel also takes), give the same
+   bits in two launches, and on random inputs at those sites hold raw
+   outputs to cosine > 0.99999 and quantized ones to one step in at most 1%
+   of elements (more than one step in at most 0.1%): it sums in another
+   order, so a y1 or y2 value at a bin edge may flip.  It is timed against
+   the route it replaces (K2 conv1, the f32 copy and cuDNN's 3x3, K3, K2
+   conv3), and stage 0 must be refused.  Times are medians of 20 runs of 5
+   back-to-back calls between CUDA events.
 3. Paths, each with the launch counts reset just before it and read just
    after it, over requests of 64, 64 and 17 images:
    - ResNet-50 fused executor, ``InferenceEngine("resnet", qbit=8)`` (K1 3,
      K2 32, K3 21 per forward); then the same weights on the CPU (cosine >
      0.995, same top-1), packed uint8 weights (bit-equal logits),
      ``policy={"conv3": "torch"}`` (K3 dual 12 times per forward);
+   - ResNet-50 fused executor with ``policy={"chain": {2, 3}}`` (K1 5, K2
+     18, K3 14, K6 7 per forward), held against the default policy's logits
+     and the CPU's (cosine > 0.995, same top-1), packed weights (bit-equal
+     logits), images/s at batch 64 and 256 in turns with the default;
    - SqueezeNet 1.0 and AlexNet on the module path with packed weights,
      ``InferenceEngine(net, qbit=8, pack_weights=True, use_pallas=None)``
      (K4 17 and 3 per forward, K1 9 and 5); then the CPU (cosine > 0.995,
@@ -52,9 +65,9 @@
    and images/s at batch 64 of each against the unquantized float32 module
    path (``qbit=32, compute_dtype=None``), plus the fused executors' at
    batch 256.
-4. A torch.profiler breakdown per forward of the ResNet-50 and MobileNetV1
-   fused executors (the latter under both ``dw`` routes) and of SqueezeNet
-   1.0's module path.
+4. A torch.profiler breakdown per forward of the ResNet-50 fused executor
+   (default and ``chain={2,3}``), the MobileNetV1 fused executor (both
+   ``dw`` routes) and SqueezeNet 1.0's module path.
 
 The line before the last is one JSON object with, for each kernel, its
 launches over the run of its first path (``launches``, three forwards) and
@@ -70,6 +83,7 @@ outside the repository.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -183,6 +197,7 @@ def main() -> int:
 
     from cnns_slfp_quantization_tpu_torch import calib, kernels
     from cnns_slfp_quantization_tpu_torch.kernels import _build
+    from cnns_slfp_quantization_tpu_torch.kernels import chain as k6
     from cnns_slfp_quantization_tpu_torch.kernels import depthwise as k5
     from cnns_slfp_quantization_tpu_torch.kernels import epilogue as k3
     from cnns_slfp_quantization_tpu_torch.kernels import fused_matmul as k4
@@ -234,6 +249,9 @@ def main() -> int:
         "k5": Row("dw3x3", f"{PKG}/csrc/depthwise.cu",
                   "cnns_slfp_quantization_tpu/kernels/depthwise.py:61",
                   "mobilenetv1_fused"),
+        "k6": Row("bottleneck_chain", f"{PKG}/csrc/chain.cu",
+                  "cnns_slfp_quantization_tpu/kernels/chain.py:87",
+                  "resnet_chain"),
     }
 
     def same_bits(a, b):
@@ -792,6 +810,212 @@ def main() -> int:
         assert same_bits(k5.dw3x3(x, w, scale=s, shift=t, relu=True),
                          k5.dw3x3_plain(x, w, s, t, relu=True)), "K5 f32 x"
 
+    # ------------------------------------------------------------------ K6
+    def k6_sites():
+        """(label, (N, H, W, C, M), recips, emit_raw, emit_q, launches per
+        forward) of K6 on the chain path at batch B: stage 2's blocks 1-4
+        (raw and q) and 5 (q only, the next stage's input), stage 3's block
+        1 (raw and q) and 2 (raw only, the head's input); stage 1's shape,
+        which the kernel takes and the path does not run."""
+        out = []
+        for s_idx, (hw_, c, m, blocks, base) in enumerate(
+                [(28, 512, 128, 4, 11), (14, 1024, 256, 6, 24),
+                 (7, 2048, 512, 3, 43)], start=1):
+            for b in range(1, blocks):
+                sid = base + 3 * b
+                last = b == blocks - 1
+                qn = (None if s_idx == 3 else [24, 43][s_idx - 1] + 1) \
+                    if last else sid + 4
+                key = (f"stage{s_idx}_" + ("end" if last and qn else
+                                            "last" if last else "mid"))
+                rec = dict(recip2=rc[sid + 2], recip3=rc[sid + 3],
+                           recip_next=rc[qn] if qn is not None else 1.0)
+                per_fwd = 0 if s_idx == 1 else 1
+                if out and out[-1][0] == key:   # same site, one more block
+                    out[-1] = out[-1][:5] + (out[-1][5] + per_fwd,)
+                    continue
+                out.append((key, (B, hw_, hw_, c, m), rec,
+                            not (last and qn is not None), qn is not None,
+                            per_fwd))
+        assert sum(s[-1] for s in out) == 7, out
+        return out
+
+    def k6_exact(n, h, w, c, m, recips):
+        """Exact inputs: every sum is exact in float32, so K6 and the plain
+        version must give the same bits whatever their summation order.
+        Inputs are quantizer values up to 4; weights are +-1 or +-0.5 on
+        about 24 inputs of each output, 0 elsewhere, so partial sums stay
+        small on a 2**-11 grid; each affine scales by a power of two chosen
+        from the data so that the scaled quantizer inputs spread about 4 by
+        sigma 0.4, and shifts by 4 / recip on a 2**-4 grid (or by -40, which
+        zeroes a channel); the identity is below 1 / recip_next.  Asserts
+        that no scaled quantizer input lies in the pseudo-zero band (0,
+        0.0625), whose 1e-10 is off the grid."""
+        vals = emitted[(emitted >= 0.125) & (emitted <= 4)]
+
+        def u(*s):
+            return torch.rand(*s, device=dev, generator=gen)
+
+        def pick(v, *s):
+            return v[torch.randint(len(v), s, device=dev, generator=gen)]
+
+        def sign(*s):
+            return torch.where(u(*s) < 0.5, -1.0, 1.0)
+
+        def wv(k, *s):
+            return (torch.where(u(*s) < 0.5, 0.5, 1.0) * sign(*s)
+                    * (u(*s) < 24.0 / k)).double()
+
+        def affine(y, r, k):
+            """(scale, shift) of an affine for the sums y ahead of the
+            quantize by 1/r."""
+            a = torch.full((k,), 2.0 ** math.floor(math.log2(
+                0.4 / (r * float(y.std()) + 1e-30))), device=dev)
+            b = torch.where(u(k) < 0.2, -40.0, round(4 / r * 16) / 16)
+            return a, b
+
+        def check_q(v, r):
+            s = v.float() * np.float32(r)
+            assert bool(((s == 0) | (s >= 0.0625)).all()), "band not empty"
+            return k6.chain_quantize(v.float(), r).double()
+        r2, r3, rn = (recips["recip2"], recips["recip3"],
+                      recips["recip_next"])
+        xq = pick(vals, n, h, w, c).double()
+        w1, w2, w3 = wv(c, c, m), wv(9 * m, 3, 3, m, m), wv(m, m, c)
+        y1 = xq.reshape(-1, c) @ w1
+        a1, b1 = affine(y1, r2, m)
+        y1p = F.pad(check_q(torch.clamp(y1 * a1 + b1, min=0), r2).reshape(
+            n, h, w, m), (0, 0, 1, 1, 1, 1))
+        y2 = sum(y1p[:, i:i + h, j:j + w, :].reshape(-1, m) @ w2[i, j]
+                 for i in range(3) for j in range(3))
+        a2, b2 = affine(y2, r3, m)
+        y3 = check_q(torch.clamp(y2 * a2 + b2, min=0), r3) @ w3
+        a3, b3 = affine(y3, rn, c)
+        idn = pick(vals[vals <= 2], n, h, w, c) * sign(n, h, w, c) \
+            * 2.0 ** math.floor(math.log2(0.5 / rn))
+        check_q(torch.clamp(y3 * a3 + b3 + idn.reshape(-1, c), min=0), rn)
+        bf = [t.to(torch.bfloat16) for t in (xq, idn, w1, w2, w3)]
+        return (*bf, a1, b1.float(), a2, b2.float(), a3, b3.float())
+
+    def k6_random(n, h, w, c, m):
+        xq = k6.chain_quantize(randn(n, h, w, c, scale=3.0).abs(), 1.0)
+        idn = randn(n, h, w, c, scale=2.0).to(torch.bfloat16)
+
+        def wq(*s):
+            return sfp.quantize_weight(randn(*s, scale=4.0), 8).to(
+                torch.bfloat16)
+
+        def aff(k):
+            return (torch.rand(k, device=dev, generator=gen) * 0.02 + 1e-3,
+                    randn(k, scale=0.5))
+        return (xq, idn, wq(c, m), wq(3, 3, m, m), wq(m, c), *aff(m),
+                *aff(m), *aff(c))
+
+    def steps_apart(g, w):
+        gi = torch.searchsorted(emitted, g.float().abs().contiguous()) \
+            * torch.sign(g.float())
+        wi = torch.searchsorted(emitted, w.float().abs().contiguous()) \
+            * torch.sign(w.float())
+        return (gi - wi).abs()
+
+    @phase("K6 bottleneck_chain")
+    def k6_phase():
+        # exact inputs at narrow widths and odd shapes, then at every site
+        # of the path (and stage 1): bit-equal, both outputs
+        rec0 = dict(recip2=rc[26], recip3=rc[27], recip_next=rc[28])
+        narrow = [((1, 7, 7, 64, 16), True), ((2, 5, 6, 64, 16), False),
+                  ((3, 7, 7, 64, 16), True), ((2, 14, 14, 64, 32), True),
+                  ((2, 9, 11, 48, 48), True)]
+        narrow = [(shape, er, rec0) for shape, er in narrow]
+        narrow += [(shape, er, rec) for _, shape, rec, er, _, _ in k6_sites()]
+        for (n, h, w, c, m), er, rec in narrow:
+            args = k6_exact(n, h, w, c, m, rec)
+            got = k6.bottleneck_chain(*args, **rec, emit_raw=er)
+            want = k6.bottleneck_chain_plain(*args, **rec, emit_raw=er)
+            torch.cuda.synchronize()
+            for g, w_ in zip(got, want):
+                assert (g is None) == (w_ is None)
+                if g is not None:
+                    assert same_bits(g, w_), \
+                        f"K6 exact {(n, h, w, c, m)} not bit-equal"
+            assert len(got[1].unique()) > 8     # many quantizer bins
+        print(f"  K6 exact inputs: bit-equal at {len(narrow)} shapes",
+              flush=True)
+        # random inputs at every site: the sums run in another order than
+        # the plain version's, so a y1 or y2 value near a bin edge may flip
+        # and move its pixel's conv3 sums by a step; held to raw cosine >
+        # 0.99999 and q off by one step in <= 1% of elements, by more than
+        # one in <= 0.1%
+        for key, (n, h, w, c, m), rec, er, eq, per_fwd in k6_sites():
+            args = k6_random(n, h, w, c, m)
+            kw = dict(rec, emit_raw=er, emit_q=eq)
+            got = k6.bottleneck_chain(*args, **kw)
+            again = k6.bottleneck_chain(*args, **kw)
+            want = k6.bottleneck_chain_plain(*args, **kw)
+            torch.cuda.synchronize()
+            msg = []
+            for name, g, a, w_ in zip(("raw", "q"), got, again, want):
+                if g is None:
+                    continue
+                assert same_bits(g, a), f"K6 {key} {name}: not deterministic"
+                gf, wf = g.float(), w_.float()
+                err = float((gf - wf).abs().max())
+                rows["k6"].err(err)
+                if name == "raw":
+                    cs = float((gf * wf).sum() / gf.norm() / wf.norm())
+                    msg.append(f"raw cos {cs:.7f} max err {err}")
+                    assert cs > 0.99999, (key, cs)
+                else:
+                    st = steps_apart(g, w_)
+                    one = float((st == 1).float().mean())
+                    more = float((st > 1).float().mean())
+                    msg.append(f"q off by 1 step {one:.2e}, by more "
+                               f"{more:.2e}")
+                    assert one <= 1e-2 and more <= 1e-3, (key, one, more)
+            call = (lambda: k6.bottleneck_chain(*args, **kw))
+            ms = median_ms(call)
+            pms = median_ms(lambda: k6.bottleneck_chain_plain(*args, **kw),
+                            iters=5, inner=1)
+            npx = n * h * w
+            nbytes = (npx * c * 2 * (2 + int(er) + int(eq))
+                      + 2 * (2 * c * m + 9 * m * m) + 8 * (2 * m + c))
+            ops = 2 * npx * (2 * c * m + 9 * m * m)
+            # the route K6 replaces at this site: K2 conv1 (quantized
+            # input), the f32 copy + cuDNN 3x3, K3, K2 conv3
+            xq, idn, w1, w2, w3, a1, b1, a2, b2, a3, b3 = args
+            conv2 = ConvKxK(w=w2.permute(3, 2, 0, 1).float().contiguous(
+                memory_format=torch.channels_last), scale=a2, shift=b2,
+                stride=1, pad=1)
+
+            def route():
+                y1q = k2.qmm_fused(xq.reshape(-1, c), w1, a1, b1, relu=True,
+                                   quant_out_recip=rec["recip2"])
+                _, y2q = k3.bn_epilogue(
+                    _conv_f32(y1q.reshape(n, h, w, m), conv2), a2, b2,
+                    relu=True, emit_raw=False, quant_recip=rec["recip3"])
+                return k2.qmm_fused(
+                    y2q.reshape(-1, m), w3, a3, b3, relu=True,
+                    residual=idn.reshape(-1, c),
+                    quant_out_recip=None if er else rec["recip_next"])
+            with backend_flags():
+                rms = median_ms(route)
+            bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
+            if per_fwd:
+                rows["k6"].add(per_fwd, ms, pms, nbytes, ops, BF16_FLOPS,
+                               path="resnet_chain")
+            print(f"  K6 {key} {(n, h, w, c, m)} x{per_fwd}: {ms:.4f} ms "
+                  f"({ops / ms / 1e9:.1f} TFLOP/s), plain {pms:.4f}, route "
+                  f"it replaces (K2 + cuDNN + K3 + K2) {rms:.4f} (A/B "
+                  f"speedup {rms / ms:.3f}), bound {bms:.4f} ({by}); "
+                  + "; ".join(msg), flush=True)
+        # stage 0 does not fit the kernel: the wrapper says so
+        try:
+            k6.bottleneck_chain(*k6_random(2, 56, 56, 256, 64), **rec0)
+        except ValueError as e:
+            print(f"  K6 stage 0: {e}", flush=True)
+        else:
+            raise AssertionError("K6 took stage 0's shape")
+
     # ---------------------------------------------------------------- paths
     def cos(a, b):
         a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
@@ -820,8 +1044,11 @@ def main() -> int:
             assert n == fwd * want.get(name, 0), (name, counts, want)
         for key, name in (("k1", "act_quantize"), ("k2", "qmm_fused"),
                           ("k3", "bn_epilogue"), ("k4", "fused_quant_matmul"),
-                          ("k5", "dw3x3")):
-            if want.get(name):
+                          ("k5", "dw3x3"), ("k6", "bottleneck_chain")):
+            # a kernel's row keeps the paths it was timed on (and its main
+            # one); the counts of every path are asserted above
+            if want.get(name) and (path in rows[key].paths
+                                   or path == rows[key].main):
                 rows[key].counted(path, counts[name], fwd)
         for r, lg in zip(reqs, logits):
             assert lg.shape == (r.shape[0], classes) and np.isfinite(lg).all()
@@ -887,6 +1114,53 @@ def main() -> int:
         print(f"  SLFP8 / fp32: b64 {tp['slfp8_b64'] / tp['fp32_b64']:.3f}, "
               f"b256 {tp['slfp8_b256'] / tp['fp32_b256']:.3f}", flush=True)
         return eng, logits[0]
+
+    @phase("path: InferenceEngine resnet SLFP8 fused executor, "
+           "chain={2,3} (K6)")
+    def chain_phase(fused_eng, fused_logits):
+        eng = InferenceEngine("resnet", qbit=8, batch_size=B, image_size=224,
+                              seed=0, policy={"chain": {2, 3}})
+        logits = serve(eng, "resnet_chain", {
+            "act_quantize": 5, "qmm_fused": 18, "bn_epilogue": 14,
+            "bottleneck_chain": 7})
+        c = cos(logits[0], fused_logits)
+        print(f"  against the default policy: cos {c:.6f}", flush=True)
+        assert c > 0.995
+        assert same_top1(logits[0], fused_logits)
+
+        t0 = time.perf_counter()
+        cpu = InferenceEngine("resnet", qbit=8, batch_size=2, image_size=224,
+                              seed=0, device="cpu", policy={"chain": {2, 3}})
+        got = cpu.predict(requests[0][:2])
+        c = cos(got, logits[0][:2])
+        print(f"  CPU plain path on 2 images: cos {c:.6f}, top-1 "
+              f"{np.argmax(got, -1)} vs {np.argmax(logits[0][:2], -1)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        assert c > 0.995
+        assert same_top1(got, logits[0][:2])
+
+        packed = InferenceEngine("resnet", qbit=8, batch_size=B,
+                                 image_size=224, seed=0, pack_weights=True,
+                                 policy={"chain": {2, 3}})
+        lp = packed.predict(requests[0])
+        assert np.array_equal(lp.view(np.int32), logits[0].view(np.int32)), \
+            "packed logits differ from float-frozen under chain={2,3}"
+        print("  packed uint8 weights: logits bit-equal", flush=True)
+        del packed
+        tp = {}
+        for bs in (64, 256):
+            x = torch.from_numpy(rng.standard_normal(
+                (bs, 224, 224, 3)).astype(np.float32)).to(dev)
+            # in turns: default, chain, chain, default
+            d1 = throughput(lambda: fused_eng.forward(x), bs)
+            c1 = throughput(lambda: eng.forward(x), bs)
+            c2 = throughput(lambda: eng.forward(x), bs)
+            d2 = throughput(lambda: fused_eng.forward(x), bs)
+            tp[bs] = (c1, c2, d1, d2)
+            print(f"  throughput b{bs}: chain={{2,3}} {c1:.1f}, {c2:.1f}; "
+                  f"default {d1:.1f}, {d2:.1f} images/s; chain / default "
+                  f"{(c1 + c2) / (d1 + d2):.3f}", flush=True)
+        return eng
 
     def images_per_s(eng, label, batch=B):
         x = torch.from_numpy(rng.standard_normal(
@@ -1138,7 +1412,11 @@ def main() -> int:
     k3_phase()
     k4_phase()
     k5_phase()
+    k6_phase()
     fused = slice_phase()
+    ch = chain_phase(*fused) if fused is not None else None
+    if fused is None:
+        failures.append("chain path: no default logits to compare")
     sq = squeezenet_phase()
     alexnet_phase()
     if fused is not None:
@@ -1152,6 +1430,7 @@ def main() -> int:
     else:
         failures.append("mobilenetv1 module path: no fused logits to compare")
     for eng, label in ((fused and fused[0], "resnet fused"),
+                       (ch, "resnet fused, chain={2,3}"),
                        (sq, "squeezenet module path"),
                        (mn and mn[0], "mobilenetv1 fused"),
                        (mn and mn[4], "mobilenetv1 fused, dw=torch")):

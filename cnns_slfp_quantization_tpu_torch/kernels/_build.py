@@ -24,7 +24,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("quantize", "qmm", "epilogue", "fused_matmul", "depthwise")
+SOURCES = ("quantize", "qmm", "epilogue", "fused_matmul", "depthwise",
+           "chain")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -51,6 +52,9 @@ SIGNATURES = {
     "depthwise": {
         "slfp_dw3x3": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _F, _I, _I, _P),
+    },
+    "chain": {
+        "slfp_bottleneck_chain": (_P,) * 13 + (_I,) * 6 + (_F,) * 3 + (_P,),
     },
 }
 

@@ -21,8 +21,12 @@ then runs the network on NHWC activations:
 JAX ``"pallas"``) and a plain f32 matmul followed by K3 (``"torch"``, JAX
 ``"xla"``).  With ``conv3="torch"`` the mid-stage block outputs use K3's
 dual form (raw + quantized in one pass), which JAX proves bit-equal to its
-default placement.  Whether a kernel or its plain version runs is decided
-by the tensors' device alone.
+default placement.  ``policy["chain"]``, a set of stage indices (JAX's
+``chain``, empty by default), runs every stride-1 bottleneck of those
+stages (blocks 1 and on) as one launch of K6, whose conv1 and conv2
+outputs never leave the card's shared memory; on the card K6 takes stages
+1-3 and raises for stage 0.  Whether a kernel or its plain version runs is
+decided by the tensors' device alone.
 
 The spatial convolutions and the plain matmuls take float32 tensors that
 hold bf16 values: every product is exact and the sums are float32, which is
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cnns_slfp_quantization_tpu_torch.kernels import chain as k6
 from cnns_slfp_quantization_tpu_torch.kernels import epilogue as k3
 from cnns_slfp_quantization_tpu_torch.kernels import qmm as k2
 from cnns_slfp_quantization_tpu_torch.models.resnet50 import (
@@ -50,7 +55,7 @@ from cnns_slfp_quantization_tpu_torch.models.resnet50 import (
 from cnns_slfp_quantization_tpu_torch.ops import sfp
 from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
 
-DEFAULT_POLICY = {"conv1": "kernel", "conv3": "kernel"}
+DEFAULT_POLICY = {"conv1": "kernel", "conv3": "kernel", "chain": frozenset()}
 
 
 def bn_fold(bn: torch.nn.BatchNorm2d, kaw: float):
@@ -91,6 +96,32 @@ class FusedWeights:
     fc_b_over_kaw: torch.Tensor   # float32(b) / float32(kaw53)
     kaw53: torch.Tensor           # float32 0-d
     recips: list           # recips[sid] = 1/Ka as JAX computes it
+    # prefix -> K6's weights (w1 [C, M], w2 [3, 3, M, M], w3 [M, C], bf16
+    # values), laid out at the first forward that runs the block on K6
+    chain: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class ChainWeights:
+    w1: torch.Tensor
+    w2: torch.Tensor
+    w3: torch.Tensor
+
+
+def _chain_weights(fw: FusedWeights, pre: str) -> ChainWeights:
+    """Block ``pre``'s weights in K6's layout, built once: uint8 codes are
+    decoded (the values JAX's ``_wv`` decodes in-graph), the conv2 kernel
+    goes from cuDNN's OIHW to HWIO."""
+    cw = fw.chain.get(pre)
+    if cw is None:
+        blk = fw.blocks[pre]
+        cw = ChainWeights(
+            w1=_bf16_values(blk["conv1"].w).contiguous(),
+            w2=blk["conv2"].w.permute(2, 3, 1, 0).to(
+                torch.bfloat16).contiguous(),
+            w3=_bf16_values(blk["conv3"].w).contiguous())
+        fw.chain[pre] = cw
+    return cw
 
 
 def _bf16_values(w: torch.Tensor) -> torch.Tensor:
@@ -209,9 +240,17 @@ def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
     """SLFP8 ResNet-50 logits (bf16, as JAX) for NHWC float32 images."""
     pol = dict(DEFAULT_POLICY, **(policy or {}))
     for key, val in pol.items():
-        if key not in DEFAULT_POLICY or val not in ("kernel", "torch"):
-            raise ValueError(f"policy {key}={val!r}: keys conv1/conv3, "
-                             f"values 'kernel' or 'torch'")
+        if key == "chain":
+            try:
+                pol[key] = frozenset(val)
+            except TypeError:
+                pol[key] = None
+            if pol[key] is None or not pol[key] <= {0, 1, 2, 3}:
+                raise ValueError(f"policy chain={val!r}: a set of stage "
+                                 f"indices in 0..3")
+        elif key not in DEFAULT_POLICY or val not in ("kernel", "torch"):
+            raise ValueError(f"policy {key}={val!r}: keys conv1/conv3 with "
+                             f"values 'kernel' or 'torch', and chain")
     with backend_flags():
         return _fused_apply(fw, x, pol)
 
@@ -243,7 +282,12 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict):
     xr_raw, xr_q = y, None
     for s_idx, b, pre, sid, _, _, _ in block_names():
         blk = fw.blocks[pre]
-        blocks = STAGES[s_idx][1]
+        # at a stage end only the next stage's quantized input is needed
+        last = b == STAGES[s_idx][1] - 1
+        if last:
+            qn = STAGES[s_idx + 1][3] + 1 if s_idx + 1 < len(STAGES) else None
+        else:
+            qn = sid + 4
         if b == 0:
             xq_sh = xr_q if xr_q is not None else k2.quantize_act_pass(
                 xr_raw, rc[sid + 1])
@@ -258,8 +302,26 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict):
             else:
                 c1_in, c1_recip = xr_raw, rc[sid + 1]
 
+        c1, c2, c3 = blk["conv1"], blk["conv2"], blk["conv3"]
+        if b > 0 and s_idx in pol["chain"]:
+            # the whole bottleneck as one K6 launch (JAX :262-296)
+            xq_in = (c1_in if c1_recip is None
+                     else k2.quantize_act_pass(xr_raw, c1_recip))
+            cw = _chain_weights(fw, pre)
+            raw, q = k6.bottleneck_chain(
+                xq_in, identity, cw.w1, cw.w2, cw.w3, c1.scale, c1.shift,
+                c2.scale, c2.shift, c3.scale, c3.shift, recip2=rc[sid + 2],
+                recip3=rc[sid + 3],
+                recip_next=rc[qn] if qn is not None else 1.0,
+                emit_raw=not (last and qn is not None),
+                emit_q=qn is not None)
+            if last:
+                xr_raw, xr_q = (q if qn is not None else raw), q
+            else:
+                xr_raw, xr_q = raw, q
+            continue
+
         # conv1 1x1: (quantize) -> mm -> BN+ReLU -> quantize for conv2
-        c1 = blk["conv1"]
         if pol["conv1"] == "kernel":
             y1q = mm(c1_in, c1, relu=True, quant_in_recip=c1_recip,
                      quant_out_recip=rc[sid + 2])
@@ -271,19 +333,11 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict):
                                     quant_recip=rc[sid + 2])
 
         # conv2 3x3 (stride): cuDNN, then BN+ReLU+quantize from f32
-        c2 = blk["conv2"]
         _, y2q = k3.bn_epilogue(_conv_f32(y1q, c2), c2.scale, c2.shift,
                                 relu=True, emit_raw=False,
                                 quant_recip=rc[sid + 3])
 
-        # conv3 1x1: mm -> BN -> +identity -> ReLU -> block output.  At a
-        # stage end only the next stage's quantized input is needed.
-        last = b == blocks - 1
-        if last:
-            qn = STAGES[s_idx + 1][3] + 1 if s_idx + 1 < len(STAGES) else None
-        else:
-            qn = sid + 4
-        c3 = blk["conv3"]
+        # conv3 1x1: mm -> BN -> +identity -> ReLU -> block output
         if pol["conv3"] == "kernel":
             xr_raw = mm(y2q, c3, relu=True, residual=_flat(identity),
                         quant_out_recip=(rc[qn] if last and qn is not None

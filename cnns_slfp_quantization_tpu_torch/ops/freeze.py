@@ -30,7 +30,7 @@ def _replace(model, fn):
         for _, layer in quant_layers(model):
             if layer.frozen_weights:
                 raise ValueError("weights are frozen already")
-            wq = sfp.quantize_weight(layer.weight / layer.kw32, layer.qbit)
+            wq = layer.weight_frozen()
             layer.weight = nn.Parameter(fn(wq), requires_grad=False)
             layer.frozen_weights = True
     return model

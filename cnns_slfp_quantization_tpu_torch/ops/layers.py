@@ -82,6 +82,12 @@ class _QuantBase(nn.Module):
                              persistent=False)
         self.register_buffer("kw32", torch.tensor(np.float32(kw)),
                              persistent=False)
+        # JAX's weight quotient ``kernel / kw`` divides by a constant, which
+        # XLA computes as ``kernel * f32(1/kw)``: the port multiplies by the
+        # same float32 reciprocal, so its frozen and packed codes are JAX's
+        self.register_buffer("rkw32", torch.tensor(np.float32(1)
+                                                   / np.float32(kw)),
+                             persistent=False)
         self.register_buffer("kaw32", torch.tensor(np.float32(ka)
                                                    * np.float32(kw)),
                              persistent=False)
@@ -91,7 +97,7 @@ class _QuantBase(nn.Module):
         w = self.weight
         if self.frozen_weights or w.dtype == torch.uint8:
             return w
-        return sfp.quantize_weight(w / self.kw32, self.qbit)
+        return sfp.quantize_weight(w * self.rkw32, self.qbit)
 
     def weight_q(self) -> torch.Tensor:
         w = self.weight_frozen()

@@ -70,7 +70,9 @@ class InferenceEngine:
         MobileNetV1 unless the caller asks for K4 (``use_pallas=True``) or
         float32 numerics (``compute_dtype=None``); ``fused=True`` on another
         net or qbit raises.  ``policy`` goes to the fused executor (keys
-        ``conv1``/``conv3`` for ResNet-50, ``dw`` for MobileNetV1).
+        ``conv1``/``conv3`` and ``chain`` for ResNet-50, ``dw`` for
+        MobileNetV1); ``policy={"chain": {2, 3}}`` serves ResNet-50's
+        stride-1 bottlenecks of stages 2 and 3 through K6, one launch each.
         ``image_size`` defaults to 32 for the CIFAR nets, 224 otherwise."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

@@ -89,12 +89,13 @@ def _setup(net):
     scales = jcalib.ScaleSet(ka=np.asarray(res.ka_max()) / 15.5,
                              kw=np.asarray(res.kw_max()) / 15.5, divisor=15.5)
     v_np = {c: _to_numpy(v[c]) for c in ("params", "batch_stats")}
-    # frozen kernels Q(kernel / float32(kw)) of the quant layers, all
+    # frozen kernels Q(kernel * f32(1/kw)) of the quant layers (JAX's
+    # quotient under jit: XLA multiplies by the reciprocal constant), all
     # through the quantizer as one vector (one compile)
     names = [n for n in v_np["params"]
              if n.startswith("conv") or (n == "fc" and net != "mobilenetv1")]
-    scaled = [v_np["params"][n]["kernel"] / np.float32(
-        scales.kw[_scale_id(n)]) for n in names]
+    scaled = [v_np["params"][n]["kernel"] * (np.float32(1) / np.float32(
+        scales.kw[_scale_id(n)])) for n in names]
     flat = jsfp.quantize_weight(
         jnp.asarray(np.concatenate([a.ravel() for a in scaled])), 8)
     flat_q = np.asarray(flat)
@@ -269,31 +270,36 @@ def test_slfp8_module_path_matches_jax(monkeypatch, setups, frozen, net,
     _agree(got, want, 0.995)
 
 
-def test_pack_matches_jax_pack_variables(setups):
-    """Grouped (depthwise) kernels, pointwise kernels and the quantized
-    classifier pack to JAX's codes.  Codes may differ only where JAX's
-    quotient differs from the true one: under jit on the CPU, XLA computes
-    ``kernel / kw`` as ``kernel * (1/kw)`` (ROADMAP Queue 3); the port
-    divides."""
-    s = setups("mobilenet")
-    cap = jmodels.create_model("mobilenet", 8, capture="full",
-                               scales=s["scales"])
+def _assert_pack_matches_jax(setups, net, n_layers):
+    """Every quant layer of ``net`` packs to exactly JAX's codes: under jit
+    XLA computes ``kernel / kw`` as ``kernel * f32(1/kw)``, and so does the
+    port."""
+    s = setups(net)
+    cap = jmodels.create_model(net, 8, capture="full", scales=s["scales"])
     # one jit over the capture run and every layer's pack (one compile)
     jp = _to_numpy(jax.jit(lambda v, x: jfreeze.pack_variables(cap, v, x))(
         s["v"], jnp.asarray(s["x"][:1])))
-    model = tfreeze.pack(_port("mobilenet", s))
+    model = tfreeze.pack(_port(net, s))
     layers = tfreeze.quant_layers(model)
-    assert len(layers) == 28
+    assert len(layers) == n_layers
     for name, layer in layers:
         assert layer.weight.dtype == torch.uint8
-        kernel = s["v_np"]["params"][name]["kernel"]
-        kw = np.float32(s["scales"].kw[_scale_id(name)])
-        quotients_differ = kernel / kw != kernel * (np.float32(1) / kw)
         mine = layer.weight.numpy()
         mine = np.transpose(mine, (2, 3, 1, 0)) if mine.ndim == 4 else mine.T
-        differ = jp["params"][name]["kernel"] != mine
-        assert not (differ & ~quotients_differ).any(), name
-        assert differ.sum() <= 1e-4 * differ.size + 1, (name, differ.sum())
+        np.testing.assert_array_equal(mine, jp["params"][name]["kernel"],
+                                      err_msg=name)
+
+
+def test_pack_matches_jax_pack_variables(setups):
+    """CIFAR MobileNet: grouped (depthwise) kernels, pointwise kernels and
+    the quantized classifier."""
+    _assert_pack_matches_jax(setups, "mobilenet", 28)
+
+
+def test_mobilenetv1_pack_matches_jax_pack_variables(setups):
+    """ImageNet MobileNetV1: its 27 quantized convs (the classifier is
+    float32 and stays unpacked)."""
+    _assert_pack_matches_jax(setups, "mobilenetv1", 27)
 
 
 # ---------------------------------------------------------------------------

@@ -82,11 +82,11 @@ def _setup(net):
     scales = jcalib.load_scales(
         {"squeezenet": "squeezenet_imgnet", "alexnet": "alexnet_imgnet",
          "resnet": "resnet50_imgnet"}[net])
-    # frozen kernels without a capture run: Q(kernel / float32(kw)) per
-    # quant layer, all through the quantizer as one vector (one compile)
+    # frozen kernels without a capture run: Q(kernel * f32(1/kw)) per
+    # quant layer (JAX's quotient under jit), all through the quantizer as one vector (one compile)
     names = [n for n, lv in v_np["params"].items() if "kernel" in lv]
-    scaled = [v_np["params"][n]["kernel"] / np.float32(
-        scales.kw[_scale_id(net, n)]) for n in names]
+    scaled = [v_np["params"][n]["kernel"] * (np.float32(1) / np.float32(
+        scales.kw[_scale_id(net, n)])) for n in names]
     flat = jsfp.quantize_weight(
         jnp.asarray(np.concatenate([a.ravel() for a in scaled])), 8)
     flat_q, flat_c = np.asarray(flat), np.asarray(jsfp.pack_slfp34(flat))
@@ -300,12 +300,11 @@ def test_use_pallas_routes_the_eligible_layers(monkeypatch, setups,
 
 
 def test_pack_matches_jax_pack_variables(setups):
-    """The port packs every quant layer, biased ones included, to the codes
-    JAX's pack_variables stores, and keeps each bias in float32.  Codes may
-    differ only where JAX's quotient differs from the true one: under jit
-    on the CPU, XLA computes ``kernel / kw`` as ``kernel * (1/kw)``, while
-    the port divides, as the reference does (2 of 663,552 codes of conv2
-    here)."""
+    """The port packs every quant layer, biased ones included, to exactly
+    the codes JAX's pack_variables stores, and keeps each bias in float32.
+    Under jit XLA computes JAX's ``kernel / kw`` as ``kernel * f32(1/kw)``
+    (227,334 of AlexNet conv2's 663,552 quotients differ from a true
+    division, 2 of its codes); the port multiplies by the same reciprocal."""
     s = setups("alexnet")
     cap = jmodels.create_model("alexnet", 8, capture="full",
                                num_classes=s["classes"])
@@ -317,19 +316,22 @@ def test_pack_matches_jax_pack_variables(setups):
     layers = tfreeze.quant_layers(model)
     assert len(packed) == len(layers) == 8
     scales = jcalib.load_scales("alexnet_imgnet")
+    n_true_division_differs = 0
     for name, layer in layers:
         assert layer.weight.dtype == torch.uint8
         assert layer.bias.dtype == torch.float32
         kernel = s["v_np"]["params"][name]["kernel"]
         kw = np.float32(scales.kw[_scale_id("alexnet", name)])
-        quotients_differ = kernel / kw != kernel * (np.float32(1) / kw)
-        differ = packed[name] != (
-            np.transpose(layer.weight.numpy(), (2, 3, 1, 0))
-            if kernel.ndim == 4 else layer.weight.numpy().T)
-        assert not (differ & ~quotients_differ).any(), name
-        assert differ.sum() <= 1e-5 * differ.size, (name, differ.sum())
+        mine = (np.transpose(layer.weight.numpy(), (2, 3, 1, 0))
+                if kernel.ndim == 4 else layer.weight.numpy().T)
+        np.testing.assert_array_equal(mine, packed[name], err_msg=name)
+        true_div = np.asarray(jsfp.pack_slfp34(jsfp.quantize_weight(
+            jnp.asarray(kernel / kw), 8)))
+        n_true_division_differs += int((true_div != packed[name]).sum())
         np.testing.assert_array_equal(layer.bias.detach().numpy(),
                                       s["v_np"]["params"][name]["bias"])
+    # the case the repair is about: a true division moves some codes
+    assert n_true_division_differs > 0
 
 
 def test_relu_yields_positive_zero():

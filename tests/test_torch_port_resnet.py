@@ -15,6 +15,7 @@ import torch
 from cnns_slfp_quantization_tpu import calib as jcalib
 from cnns_slfp_quantization_tpu import models as jmodels
 from cnns_slfp_quantization_tpu.models import resnet50_fused as jfused
+from cnns_slfp_quantization_tpu.ops import freeze as jfreeze
 from cnns_slfp_quantization_tpu.ops import sfp as jsfp
 from cnns_slfp_quantization_tpu.train import checkpoint as jckpt
 from cnns_slfp_quantization_tpu_torch import models as tmodels
@@ -70,13 +71,13 @@ def setup():
     v = jm.init(jax.random.PRNGKey(1), jnp.asarray(x[:1]), train=False)
     v_np = _to_numpy(v)
     scales = jcalib.load_scales("resnet50_imgnet")
-    # frozen JAX weights without a capture run: Q(kernel / float32(kw)) per
+    # frozen JAX weights without a capture run: Q(kernel * f32(1/kw)) per
     # quant layer, stored as bf16 (prequantize_variables(dtype=bfloat16)).
     # The quantizer is elementwise, so all kernels go through it as one
     # vector (one shape to compile).
     names = [n for n, lv in v_np["params"].items() if "kernel" in lv]
-    scaled = [v_np["params"][n]["kernel"] / np.float32(
-        scales.kw[_scale_id(n)]) for n in names]
+    scaled = [v_np["params"][n]["kernel"] * (np.float32(1) / np.float32(
+        scales.kw[_scale_id(n)])) for n in names]
     flat_q = np.asarray(jsfp.quantize_weight(
         jnp.asarray(np.concatenate([a.ravel() for a in scaled])), 8))
     params, at = {n: dict(lv) for n, lv in v_np["params"].items()}, 0
@@ -140,6 +141,24 @@ def test_freeze_matches_jax_frozen_weights(setup):
         want = (np.transpose(want, (3, 2, 0, 1)) if want.ndim == 4
                 else want.T)
         np.testing.assert_array_equal(layer.weight.float().numpy(), want,
+                                      err_msg=name)
+
+
+def test_pack_matches_jax_pack_variables(setup):
+    """All 54 quant kernels pack to exactly the codes JAX's pack_variables
+    stores: under jit XLA computes ``kernel / kw`` as ``kernel * f32(1/kw)``,
+    and so does the port."""
+    x, v, v_np, _, _ = setup
+    cap = jmodels.create_model("resnet", 8, capture="full")
+    jp = _to_numpy(jax.jit(lambda vv, xx: jfreeze.pack_variables(cap, vv, xx))(
+        v, jnp.asarray(x[:1])))
+    layers = tfreeze.quant_layers(tfreeze.pack(load_jax_variables(
+        tmodels.create_model("resnet", 8), v_np)))
+    assert len(layers) == 54
+    for name, layer in layers:
+        mine = layer.weight.numpy()
+        mine = np.transpose(mine, (2, 3, 1, 0)) if mine.ndim == 4 else mine.T
+        np.testing.assert_array_equal(mine, jp["params"][name]["kernel"],
                                       err_msg=name)
 
 
