@@ -14,10 +14,15 @@
    plus the reordering bound K * 2**-22 * (sum of the terms' magnitudes),
    which is one ulp unless the sum cancels to near zero; quantized outputs
    within one step of the quantizer's output in at most 0.1% of elements.
-   K4 is checked at SqueezeNet 1.0's, AlexNet's, ResNet-50's and
-   MobileNetV1's 1x1 / dense shapes over uint8 and bf16-value weights, and
-   over every flag (signed and nonneg prologue, quantize_x=False, bias,
-   ReLU, f32 and bf16 output, f32 and bf16 x, both weight layouts).  K5
+   Both give the same bits in two launches at every shape checked (split-K
+   included: its partials are added in a fixed order).  K2 is checked at
+   the 16 shapes of the fused ResNet-50 executor and K4 at SqueezeNet
+   1.0's, AlexNet's, ResNet-50's and MobileNetV1's 1x1 / dense shapes, both
+   over uint8 and bf16-value weights, and at ragged shapes and split-K at
+   ragged K; K4 also over every flag (signed and nonneg prologue,
+   quantize_x=False, bias, ReLU, f32 and bf16 output, f32 and bf16 x, both
+   weight layouts).  Each K2/K4 time is printed beside the tile plan, its
+   time between CUDA events and the wmma design's time taken so.  K5
    (depthwise 3x3) must be bit-equal at MobileNetV1's 9 stride-1 sites
    (ImageNet at batch 64 and 256, CIFAR at 64) in three forms (serving:
    bf16, ReLU, quantize; f32 out without ReLU; nonneg_in without ReLU) and
@@ -32,7 +37,10 @@
    order, so a y1 or y2 value at a bin edge may flip.  It is timed against
    the route it replaces (K2 conv1, the f32 copy and cuDNN's 3x3, K3, K2
    conv3), and stage 0 must be refused.  Times are medians of 20 runs of 5
-   back-to-back calls between CUDA events.
+   back-to-back calls between CUDA events, except K2's and K4's and their
+   ``torch.matmul`` yardsticks': kernels of a few microseconds, whose
+   device time torch.profiler gives (``bench_gemm.kernel_ms``), where
+   events would time the host.
 3. Paths, each with the launch counts reset just before it and read just
    after it, over requests of 64, 64 and 17 images:
    - ResNet-50 fused executor, ``InferenceEngine("resnet", qbit=8)`` (K1 3,
@@ -103,6 +111,75 @@ F32_OPS = 67e12                # float32 outside the tensor cores
 # ~35); both are far below the bytes bound
 K1_OPS, K3_OPS = 25, 35
 DW_OPS = 18                    # K5's stencil: 9 multiply-adds per element
+# ms per launch of the wmma design of K2 and K4 that the shared Hopper
+# mainloop replaced, per shape at batch 64 (K2 with bf16 weights, K4 with
+# uint8 codes), from this script's last run on that design (NVIDIA H100
+# 80GB HBM3, 700.00 W): CUDA events around 5 back-to-back calls, which for
+# kernels of a few microseconds time the host as much as the card.
+# Printed beside the new design's time taken the same way.
+OLD_K2_MS = {
+    ('c1_b0', 200704, 64, 64): 0.0589,
+    ('c1_mid', 200704, 256, 64): 0.1367,
+    ('c3_mid', 200704, 64, 256): 0.2014,
+    ('c3_end', 200704, 64, 256): 0.2478,
+    ('c1_b0', 200704, 256, 128): 0.1832,
+    ('c1_mid', 50176, 512, 128): 0.1205,
+    ('c3_mid', 50176, 128, 512): 0.125,
+    ('c3_end', 50176, 128, 512): 0.1462,
+    ('c1_b0', 50176, 512, 256): 0.1497,
+    ('c1_mid', 12544, 1024, 256): 0.1118,
+    ('c3_mid', 12544, 256, 1024): 0.0887,
+    ('c3_end', 12544, 256, 1024): 0.0986,
+    ('c1_b0', 12544, 1024, 512): 0.1243,
+    ('c1_mid', 3136, 2048, 512): 0.111,
+    ('c3_mid', 3136, 512, 2048): 0.0706,
+    ('c3_last', 3136, 512, 2048): 0.0701,
+}
+OLD_K4_MS = {
+    ('squeezenet', (64, 54, 54, 96), 96, 16, 1): 0.0808,
+    ('squeezenet', (64, 54, 54, 16), 16, 64, 1): 0.043,
+    ('squeezenet', (64, 54, 54, 128), 128, 16, 1): 0.0774,
+    ('squeezenet', (64, 54, 54, 128), 128, 32, 1): 0.0777,
+    ('squeezenet', (64, 54, 54, 32), 32, 128, 1): 0.0805,
+    ('squeezenet', (64, 27, 27, 256), 256, 32, 1): 0.048,
+    ('squeezenet', (64, 27, 27, 32), 32, 128, 1): 0.0416,
+    ('squeezenet', (64, 27, 27, 256), 256, 48, 1): 0.0647,
+    ('squeezenet', (64, 27, 27, 48), 48, 192, 1): 0.0427,
+    ('squeezenet', (64, 27, 27, 384), 384, 48, 1): 0.053,
+    ('squeezenet', (64, 27, 27, 384), 384, 64, 1): 0.0612,
+    ('squeezenet', (64, 27, 27, 64), 64, 256, 1): 0.0649,
+    ('squeezenet', (64, 13, 13, 512), 512, 64, 1): 0.0673,
+    ('squeezenet', (64, 13, 13, 64), 64, 256, 1): 0.0412,
+    ('squeezenet', (64, 13, 13, 512), 512, 1000, 1): 0.2003,
+    ('alexnet', (64, 9216), 9216, 4096, 1): 0.376,
+    ('alexnet', (64, 4096), 4096, 4096, 1): 0.1352,
+    ('alexnet', (64, 4096), 4096, 1000, 1): 0.1463,
+    ('resnet_module', (64, 56, 56, 64), 64, 64, 1): 0.0583,
+    ('resnet_module', (64, 56, 56, 64), 64, 256, 1): 0.2121,
+    ('resnet_module', (64, 56, 56, 256), 256, 64, 1): 0.1287,
+    ('resnet_module', (64, 56, 56, 256), 256, 128, 1): 0.254,
+    ('resnet_module', (64, 28, 28, 128), 128, 512, 1): 0.1575,
+    ('resnet_module', (64, 56, 56, 256), 256, 512, 2): 0.2492,
+    ('resnet_module', (64, 28, 28, 512), 512, 128, 1): 0.1199,
+    ('resnet_module', (64, 28, 28, 512), 512, 256, 1): 0.2271,
+    ('resnet_module', (64, 14, 14, 256), 256, 1024, 1): 0.1279,
+    ('resnet_module', (64, 28, 28, 512), 512, 1024, 2): 0.2285,
+    ('resnet_module', (64, 14, 14, 1024), 1024, 256, 1): 0.1224,
+    ('resnet_module', (64, 14, 14, 1024), 1024, 512, 1): 0.2218,
+    ('resnet_module', (64, 7, 7, 512), 512, 2048, 1): 0.1188,
+    ('resnet_module', (64, 14, 14, 1024), 1024, 2048, 2): 0.2184,
+    ('resnet_module', (64, 7, 7, 2048), 2048, 512, 1): 0.1254,
+    ('resnet_module', (64, 2048), 2048, 1000, 1): 0.0812,
+    ('mobilenetv1_module', (64, 112, 112, 32), 32, 64, 1): 0.1637,
+    ('mobilenetv1_module', (64, 56, 56, 64), 64, 128, 1): 0.112,
+    ('mobilenetv1_module', (64, 56, 56, 128), 128, 128, 1): 0.16,
+    ('mobilenetv1_module', (64, 28, 28, 128), 128, 256, 1): 0.0813,
+    ('mobilenetv1_module', (64, 28, 28, 256), 256, 256, 1): 0.1293,
+    ('mobilenetv1_module', (64, 14, 14, 256), 256, 512, 1): 0.0676,
+    ('mobilenetv1_module', (64, 14, 14, 512), 512, 512, 1): 0.1179,
+    ('mobilenetv1_module', (64, 7, 7, 512), 512, 1024, 1): 0.0646,
+    ('mobilenetv1_module', (64, 7, 7, 1024), 1024, 1024, 1): 0.118,
+}
 
 failures: list = []
 
@@ -196,7 +273,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
 
     from cnns_slfp_quantization_tpu_torch import calib, kernels
-    from cnns_slfp_quantization_tpu_torch.kernels import _build
+    from cnns_slfp_quantization_tpu_torch.kernels import _build, _gemm_plan
     from cnns_slfp_quantization_tpu_torch.kernels import chain as k6
     from cnns_slfp_quantization_tpu_torch.kernels import depthwise as k5
     from cnns_slfp_quantization_tpu_torch.kernels import epilogue as k3
@@ -211,6 +288,8 @@ def main() -> int:
     from cnns_slfp_quantization_tpu_torch.ops import sfp
     from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
     from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
+    from cnns_slfp_quantization_tpu_torch.utils import bench_gemm
+    from cnns_slfp_quantization_tpu_torch.utils.bench_gemm import kernel_ms
     from cnns_slfp_quantization_tpu_torch.utils.profiling import (
         median_ms, throughput)
 
@@ -268,7 +347,7 @@ def main() -> int:
         {path: [(NHWC input shape, recip, launches per forward)]} for K1
         (the input quantize of every layer K4 does not take) and {path:
         [(input shape, K, N, stride, bias, launches per forward)]} for K4
-        (2-D input shape for a dense layer)."""
+        (2-D input shape for a dense layer; ``bench_gemm.k4_sites``)."""
         from collections import Counter
 
         from cnns_slfp_quantization_tpu_torch.models.alexnet import CONVS
@@ -280,20 +359,14 @@ def main() -> int:
         stem = ((B, 224, 224, 3), None, 1)
         k1s = {"squeezenet": [stem], "alexnet": [stem],
                "resnet_module": [stem]}
-        k4s = {}
+        k4s = bench_gemm.k4_sites(B)
         # SqueezeNet 1.0: stem 109, ceil pools to 54, 27, 13
-        sq4, res, cin = Counter(), 54, 96
-        sq1 = Counter()
-        for f, (sq, e1, e3) in enumerate(FIRE_PLAN):
+        res, sq1 = 54, Counter()
+        for f, (sq, _, _) in enumerate(FIRE_PLAN):
             if f in POOL_BEFORE and f:
                 res = -(-(res - 3) // 2) + 1
-            sq4[((B, res, res, cin), cin, sq, 1, True)] += 1
-            sq4[((B, res, res, sq), sq, e1, 1, True)] += 1
             sq1[((B, res, res, sq), sq_rc[3 + 3 * f])] += 1
-            cin = e1 + e3
-        sq4[((B, res, res, cin), cin, 1000, 1, True)] += 1
         k1s["squeezenet"] += [(sh, r, c) for (sh, r), c in sq1.items()]
-        k4s["squeezenet"] = [(*key, c) for key, c in sq4.items()]
         # AlexNet: convs 55, 27, 13, 13, 13 (pools 27, 13, 6), FC 9216
         res, cin = 55, 64
         for sid, (feat, _, _, _, pool) in enumerate(CONVS[1:], start=1):
@@ -301,28 +374,16 @@ def main() -> int:
                 res = (res - 3) // 2 + 1
             k1s["alexnet"].append(((B, res, res, cin), ax_rc[sid], 1))
             cin = feat
-        k4s["alexnet"] = [((B, 9216), 9216, 4096, 1, True, 1),
-                          ((B, 4096), 4096, 4096, 1, True, 1),
-                          ((B, 4096), 4096, 1000, 1, True, 1)]
         # ResNet-50 with use_pallas=True: every 1x1 conv and the FC on K4,
         # the stem and the 3x3 convs' inputs through K1
-        rn4, rn1, res, cin = Counter(), Counter(), 56, 64
-        for s_idx, (planes, blocks, stride, base) in enumerate(
-                [(64, 3, 1, 1), (128, 4, 2, 11), (256, 6, 2, 24),
-                 (512, 3, 2, 43)]):
+        rn1, res = Counter(), 56
+        for planes, blocks, stride, base in [(64, 3, 1, 1), (128, 4, 2, 11),
+                                             (256, 6, 2, 24),
+                                             (512, 3, 2, 43)]:
             for b in range(blocks):
-                st = stride if b == 0 else 1
-                out = res // st
-                rn4[((B, res, res, cin), cin, planes, 1, False)] += 1
                 rn1[((B, res, res, planes), rc[base + 3 * b + 2])] += 1
-                rn4[((B, out, out, planes), planes, 4 * planes, 1,
-                     False)] += 1
-                if b == 0:
-                    rn4[((B, res, res, cin), cin, 4 * planes, st, False)] += 1
-                res, cin = out, 4 * planes
-        rn4[((B, 2048), 2048, 1000, 1, True)] += 1
+                res //= stride if b == 0 else 1
         k1s["resnet_module"] += [(sh, r, c) for (sh, r), c in rn1.items()]
-        k4s["resnet_module"] = [(*key, c) for key, c in rn4.items()]
         for path, want in (("squeezenet", (9, 17)), ("alexnet", (5, 3)),
                            ("resnet_module", (17, 37))):
             got = (sum(c for *_, c in k1s[path]),
@@ -335,11 +396,11 @@ def main() -> int:
     def mobilenet_sites(size):
         """MobileNetV1's kernel sites at batch B for size x size images, per
         forward: K3 {(NHWC shape, form): n} and K5 {NHWC shape: n} of the
-        fused executor, K4 {(input shape, K, N): n} and the depthwise
-        inputs {NHWC shape: n} that K1 quantizes on the module path."""
+        fused executor, and the depthwise inputs {NHWC shape: n} that K1
+        quantizes on the module path (K4's: ``bench_gemm.k4_sites``)."""
         from collections import Counter
 
-        k3s, k5s, k4s, k1s = Counter(), Counter(), Counter(), Counter()
+        k3s, k5s, k1s = Counter(), Counter(), Counter()
         res = (size - 1) // 2 + 1             # stem 3x3/s2/p1
         k3s[((B, res, res, 32), "q")] += 1
         for b, (inp, oup, stride) in enumerate(DW_CONFIG):
@@ -350,20 +411,16 @@ def main() -> int:
             else:
                 k3s[((B, out, out, inp), "q")] += 1
             res = out
-            k4s[((B, res, res, inp), inp, oup)] += 1
             last = b == len(DW_CONFIG) - 1
             k3s[((B, res, res, oup), "raw_relu" if last else "q")] += 1
-        assert (sum(k3s.values()), sum(k5s.values()), sum(k4s.values()),
-                sum(k1s.values())) == (18, 9, 13, 13)
-        return k3s, k5s, k4s, k1s
+        assert (sum(k3s.values()), sum(k5s.values()),
+                sum(k1s.values())) == (18, 9, 13)
+        return k3s, k5s, k1s
 
     mn_sites = {"mobilenetv1_fused": mobilenet_sites(224),
                 "mobilenet_fused": mobilenet_sites(32)}
     k1_module_sites["mobilenetv1_module"] = [((B, 224, 224, 3), None, 1)] + [
-        (shape, rc[2], n) for shape, n in mn_sites["mobilenetv1_fused"][3].items()]
-    k4_module_sites["mobilenetv1_module"] = [
-        (shape, k, n, 1, False, c)
-        for (shape, k, n), c in mn_sites["mobilenetv1_fused"][2].items()]
+        (shape, rc[2], n) for shape, n in mn_sites["mobilenetv1_fused"][2].items()]
 
     # ------------------------------------------------------------------ K1
     @phase("K1 act_quantize")
@@ -423,88 +480,35 @@ def main() -> int:
                          k1.act_quantize_plain(x, rc[3], nonneg=False))
 
     # ------------------------------------------------------------------ K2
-    def k2_sites():
-        """(M, K, N, flags, launches per forward) of every 1x1 conv."""
-        out = []
-        res = 56
-        in_ch = 64
-        for s, (planes, blocks, stride, _) in enumerate(
-                [(64, 3, 1, 1), (128, 4, 2, 11), (256, 6, 2, 24),
-                 (512, 3, 2, 43)]):
-            m_in = B * res * res
-            res //= stride
-            m = B * res * res
-            out.append((m_in, in_ch, planes, "c1_b0", 1))
-            out.append((m, planes * 4, planes, "c1_mid", blocks - 1))
-            out.append((m, planes, planes * 4, "c3_mid", blocks - 1))
-            out.append((m, planes, planes * 4,
-                        "c3_end" if s < 3 else "c3_last", 1))
-            in_ch = planes * 4
-        return out
-
-    flag_sets = {
-        "c1_b0": dict(relu=True, quant_out_recip=rc[2]),
-        "c1_mid": dict(relu=True, quant_in_recip=rc[4], quant_out_recip=rc[5]),
-        "c3_mid": dict(relu=True, residual=True),
-        "c3_end": dict(relu=True, residual=True, quant_out_recip=rc[12]),
-        "c3_last": dict(relu=True, residual=True),
-    }
-
-    # every bf16 value the SLFP<3,4> activation quantizer emits (0, the
-    # pseudo-zero, 0.125 and up), from the quantizer fed every finite
-    # non-negative bf16 value: its linear pre-round skips some codebook
-    # entries, so the codebook itself would count one step as two
-    emitted = sfp.act_bf16_bits(
-        torch.arange(0x7F80, dtype=torch.int32, device=dev).to(
-            torch.int16).view(torch.bfloat16), 1.0, 8, True).float().unique()
+    flag_sets = bench_gemm.k2_flags(rc)
+    emitted = bench_gemm.emitted_values(dev)
 
     def k2_check(got, want, quantized, label, mag, k):
-        """K2 sums its K products in another order than the plain version.
-        Each order rounds at most K times, each by at most 2**-23 of the
-        running sum (tensor cores may truncate), which never exceeds ``mag``,
-        the per-element sum of the magnitudes of all terms; so the f32 values
-        before the output rounding differ by at most delta = K * 2**-22 *
-        mag, and the outputs by delta plus one ulp of the output type.  Where
-        the sum does not cancel, that is one ulp; where it cancels to near
-        zero, one ulp of the result is below what any reordering can hold."""
-        g, w = got.float(), want.float()
-        err = float((g - w).abs().max())
-        if quantized:
-            # one index step is one step of the quantizer's output
-            gi = torch.searchsorted(emitted, g.abs().contiguous()) * torch.sign(g)
-            wi = torch.searchsorted(emitted, w.abs().contiguous()) * torch.sign(w)
-            step = (gi - wi).abs()
-            frac = float((step > 0).float().mean())
-            if float(step.max()) > 1 or frac > 1e-3:
-                i = int(step.flatten().argmax())
-                raise AssertionError(
-                    f"{label}: {frac:.2e} of elements differ, max step "
-                    f"{float(step.max())}; first: got "
-                    f"{float(g.flatten()[i])}, want {float(w.flatten()[i])}")
-        else:
-            delta = k * 2.0**-22 * mag
-            v = w.abs() + delta
-            _, e = torch.frexp(v)  # v = f * 2**e, f in [0.5, 1)
-            p = 7 if got.dtype == torch.bfloat16 else 23
-            ulp = torch.ldexp(torch.ones_like(v), e - 1 - p) * (v > 0)
-            bad = (g - w).abs() > delta + ulp
-            if bool(bad.any()):
-                i = int(bad.flatten().nonzero()[0])
-                raise AssertionError(
-                    f"{label}: {int(bad.sum())} elements beyond the bound; "
-                    f"first: got {float(g.flatten()[i])}, want "
-                    f"{float(w.flatten()[i])}, mag {float(mag.flatten()[i])}")
-        return err
+        """One ulp plus the reordering bound K * 2**-22 * sum|terms| (raw),
+        one quantizer step in at most 0.1% of elements (quantized):
+        ``bench_gemm.check_gemm``."""
+        return bench_gemm.check_gemm(got, want, quantized, label, mag, k,
+                                     emitted)
 
-    def k2_mag(xq, wv, s, t, res):
-        """Per-element sum of the magnitudes of the terms of K2's output:
-        |s| * (|x| @ |w|) + |t| (+ |residual|), from bf16 operands."""
-        mag = (xq.float().abs() @ wv.float().abs()) * s.abs() + t.abs()
-        return mag if res is None else mag + res.float().abs()
+    def plan_str(m, k, n, residual=False):
+        p = _gemm_plan.plan(m, k, n, residual)
+        return (f"plan bm {p.bm} bn {p.bn} split {p.split} stages "
+                f"{p.stages}")
+
+    def k2_case(x, w, s, t, res, flags, label, mag, k):
+        """K2 against its plain version, and the same bits in two
+        launches."""
+        got = k2.qmm_fused(x, w, s, t, residual=res, **flags)
+        again = k2.qmm_fused(x, w, s, t, residual=res, **flags)
+        want = k2.qmm_plain(x, w, s, t, residual=res, **flags)
+        torch.cuda.synchronize()
+        rows["k2"].err(k2_check(got, want, "quant_out_recip" in flags,
+                                label, mag, k))
+        assert same_bits(got, again), f"{label}: two launches differ"
 
     @phase("K2 qmm_fused")
     def k2_phase():
-        for m, k, n, site, per_fwd in k2_sites():
+        for m, k, n, site, per_fwd in bench_gemm.k2_sites(B):
             flags = dict(flag_sets[site])
             res = randn(m, n, scale=2.0).to(torch.bfloat16) \
                 if flags.pop("residual", False) else None
@@ -512,52 +516,56 @@ def main() -> int:
             x = randn(m, k, scale=3.0).abs().to(torch.bfloat16)
             if not raw_in:  # a quantized input, as the producer emits it
                 x = k1.act_quantize_plain(x, 1.0)
-            wq = sfp.quantize_weight(randn(k, n, scale=4.0), 8)
+            # the executor's [N, K] storage, handed over as its transpose
+            wq = sfp.quantize_weight(randn(n, k, scale=4.0), 8)
             s = torch.rand(n, device=dev, generator=gen) * 0.01 + 1e-3
             t = randn(n, scale=0.5)
-            quantized = "quant_out_recip" in flags
-            mag = None if quantized else k2_mag(
+            mag = bench_gemm.gemm_mag(
                 k1.act_quantize_plain(x, flags["quant_in_recip"]) if raw_in
-                else x, wq.to(torch.bfloat16), s, t, res)
-            for w in (wq.to(torch.bfloat16), sfp.pack_slfp34(wq)):
-                args = (x, w, s, t)
-                got = k2.qmm_fused(*args, residual=res, **flags)
-                want = k2.qmm_plain(*args, residual=res, **flags)
-                torch.cuda.synchronize()
+                else x, wq.to(torch.bfloat16).t(), s, t, res)
+            for w in (sfp.pack_slfp34(wq).t(), wq.to(torch.bfloat16).t()):
                 label = f"K2 {site} M={m} K={k} N={n} {w.dtype}"
-                rows["k2"].err(k2_check(got, want, quantized, label, mag, k))
-                if w.dtype != torch.bfloat16:
-                    continue
-                ms = median_ms(lambda: k2.qmm_fused(*args, residual=res,
-                                                    **flags))
-                pms = median_ms(lambda: k2.qmm_plain(*args, residual=res,
-                                                     **flags))
-                wb = w
-                lms = median_ms(lambda: torch.matmul(x, wb))
-                nbytes = (m * k * 2 + k * n * 2 + n * 8 + m * n * 2
-                          + (m * n * 2 if res is not None else 0))
-                ops = 2 * m * k * n
-                rows["k2"].add(per_fwd, ms, pms, nbytes, ops, BF16_FLOPS,
-                               lms)
-                bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
-                print(f"  {label} x{per_fwd}: {ms:.4f} ms "
-                      f"({ops / ms / 1e9:.1f} TFLOP/s), plain {pms:.4f}, "
-                      f"torch.matmul {lms:.4f}, bound {bms:.4f} ({by})",
-                      flush=True)
-        # f32 output and ragged M / K, N multiples of 8
-        x = randn(1000, 136, scale=3.0).abs().to(torch.bfloat16)
-        wq = sfp.quantize_weight(randn(136, 72, scale=4.0), 8)
-        s = torch.rand(72, device=dev, generator=gen) * 0.01
-        t = randn(72)
-        mag = k2_mag(k1.act_quantize_plain(x, rc[4]), wq.to(torch.bfloat16),
-                     s, t, None)
-        for od in (torch.float32, torch.bfloat16):
-            got = k2.qmm_fused(x, wq.to(torch.bfloat16), s, t,
-                               quant_in_recip=rc[4], out_dtype=od)
-            want = k2.qmm_plain(x, wq.to(torch.bfloat16), s, t,
-                                quant_in_recip=rc[4], out_dtype=od)
-            rows["k2"].err(k2_check(got, want, False, f"K2 ragged {od}", mag,
-                                    136))
+                k2_case(x, w, s, t, res, flags, label, mag, k)
+            args = (x, w, s, t)   # bf16 weights: the path's default
+            ms = kernel_ms(lambda: k2.qmm_fused(*args, residual=res,
+                                                **flags))
+            pms = median_ms(lambda: k2.qmm_plain(*args, residual=res,
+                                                 **flags))
+            wb = w
+            lms = kernel_ms(lambda: torch.matmul(x, wb))
+            ems = median_ms(lambda: k2.qmm_fused(*args, residual=res,
+                                                 **flags))
+            nbytes = (m * k * 2 + k * n * 2 + n * 8 + m * n * 2
+                      + (m * n * 2 if res is not None else 0))
+            ops = 2 * m * k * n
+            rows["k2"].add(per_fwd, ms, pms, nbytes, ops, BF16_FLOPS, lms)
+            bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
+            print(f"  {label} x{per_fwd}: {ms:.4f} ms "
+                  f"({ops / ms / 1e9:.1f} TFLOP/s; events {ems:.4f}, wmma "
+                  f"design {OLD_K2_MS[(site, m, k, n)]:.4f}), plain {pms:.4f}, "
+                  f"torch.matmul {lms:.4f}, bound {bms:.4f} ({by}); "
+                  f"{plan_str(m, k, n, res is not None)}", flush=True)
+        # f32 output and ragged M / K / N (multiples of 8: rows of 72 codes
+        # go by cp.async) with [K, N] weights, and split-K at ragged K with
+        # [N, K] storage
+        for m, k, n, nk in ((1000, 136, 72, False), (B, 4104, 512, True)):
+            x = randn(m, k, scale=3.0).abs().to(torch.bfloat16)
+            wq = sfp.quantize_weight(randn(k, n, scale=4.0), 8)
+            if nk:
+                wq = wq.t().contiguous().t()
+            s = torch.rand(n, device=dev, generator=gen) * 0.01
+            t = randn(n)
+            res = randn(m, n, scale=2.0).to(torch.bfloat16)
+            mag = bench_gemm.gemm_mag(k1.act_quantize_plain(x, rc[4]),
+                                      wq.to(torch.bfloat16), s, t, res)
+            for od in (torch.float32, torch.bfloat16):
+                for w in (wq.to(torch.bfloat16), sfp.pack_slfp34(wq)):
+                    k2_case(x, w, s, t, res,
+                            dict(quant_in_recip=rc[4], out_dtype=od),
+                            f"K2 ragged M={m} K={k} N={n} {od} {w.dtype}",
+                            mag, k)
+            print(f"  K2 M={m} K={k} N={n}: ok; {plan_str(m, k, n, True)}",
+                  flush=True)
 
     # ------------------------------------------------------------------ K3
     def k3_sites():
@@ -652,8 +660,9 @@ def main() -> int:
         def plain():
             return k4.fused_quant_matmul_plain(x2, w, bias=b_eff, **flags)
 
-        got, want = call(), plain()
+        got, again, want = call(), call(), plain()
         torch.cuda.synchronize()
+        assert same_bits(got, again), f"{label}: two launches differ"
         if flags.get("quantize_x", True):
             xq = sfp.act_bf16_bits(x2, 1.0 / ka4, 8, flags.get("nonneg", False))
         else:
@@ -687,21 +696,28 @@ def main() -> int:
                     call, plain, lib, nbytes, ops = k4_case(
                         x, w, bias, stride, label, nonneg=True,
                         out_dtype=torch.bfloat16)
-                    ms = median_ms(call)
+                    ms = kernel_ms(call)
                     if w.dtype != torch.uint8:  # the path serves codes
                         ms_bf16 = ms
                         continue
                     pms = median_ms(plain, iters=5, inner=1)
-                    lms = median_ms(lib)
+                    lms = kernel_ms(lib)
+                    ems = median_ms(call)
                     rows["k4"].add(per_fwd, ms, pms, nbytes, ops, BF16_FLOPS,
                                    lms, path=path)
                     bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
+                    old = OLD_K4_MS[(path, shape, k, n, stride)]
                     print(f"  {label} x{per_fwd}: {ms:.4f} ms "
                           f"({nbytes / ms / 1e6:.0f} GB/s; bf16 weights "
-                          f"{ms_bf16:.4f}), plain {pms:.4f}, torch.matmul "
-                          f"{lms:.4f}, bound {bms:.4f} ({by})", flush=True)
-        # every flag, at a large-M small-K shape and a small-M one, both
-        # weight layouts, f32 and bf16 x
+                          f"{ms_bf16:.4f}; events {ems:.4f}, wmma design "
+                          f"{old:.4f}), plain "
+                          f"{pms:.4f}, torch.matmul {lms:.4f}, bound "
+                          f"{bms:.4f} ({by}); "
+                          f"{plan_str(*bench_gemm.gemm_shape(shape, k, n, stride))}",
+                          flush=True)
+        # every flag, at a large-M small-K shape, small-M split-K ones (at
+        # whole and ragged K) and a ragged one, both weight layouts, f32 and
+        # bf16 x
         variants = [
             dict(nonneg=False, x_f32=True, out_dtype=torch.float32,
                  bias=False, act=None, w="u8", layout="kn"),
@@ -712,7 +728,8 @@ def main() -> int:
             dict(nonneg=True, x_f32=True, out_dtype=torch.bfloat16,
                  bias=False, act=None, w="u8", layout="nk"),
         ]
-        for m, k, n in ((B * 54 * 54, 16, 64), (B, 4096, 4096), (1000, 136, 72)):
+        for m, k, n in ((B * 54 * 54, 16, 64), (B, 4096, 4096),
+                        (B, 4104, 1000), (1000, 136, 72)):
             for v in variants:
                 v = dict(v)
                 x = randn(m, k, scale=1.5)

@@ -38,16 +38,18 @@ SIGNATURES = {
         "slfp_quantize_f32form": (_P, _I, _P, _LL, _I, _P),
     },
     "qmm": {
-        "slfp_qmm": (_P, _P, _I, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _F,
-                     _I, _I, _F, _P),
+        # ..., then the tile plan (bm, bn, split, stages, smem), the
+        # split-K workspace and the stream
+        "slfp_qmm": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
+                     _F, _I, _I, _F) + (_I,) * 5 + (_P, _P),
     },
     "epilogue": {
         "slfp_epilogue": (_P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P),
     },
     "fused_matmul": {
-        "slfp_fused_matmul": (_P, _I, _LL, _I, _LL, _LL, _LL, _P, _I, _I,
-                              _P, _P, _I, _LL, _I, _I, _I, _F, _I, _F, _F,
-                              _I, _P),
+        "slfp_fused_matmul": (_P, _I, _LL, _I, _LL, _LL, _LL, _LL, _P, _I,
+                              _I, _P, _P, _I, _LL, _I, _I, _I, _F, _I, _F,
+                              _F, _I) + (_I,) * 5 + (_P, _P),
     },
     "depthwise": {
         "slfp_dw3x3": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cnns_slfp_quantization_tpu_torch.kernels import _build
+from cnns_slfp_quantization_tpu_torch.kernels import _build, _gemm_plan
 from cnns_slfp_quantization_tpu_torch.ops import sfp
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -95,13 +95,7 @@ def _matmul(x4, w, *, ka, kw, bias, act, quantize_x, nonneg, out_dtype):
         w = w.to(torch.bfloat16)
     nb, h, wd, k = x4.shape
     k2, n = w.shape
-    if w.is_contiguous():
-        w_nk, w_store = False, w
-    elif w.t().is_contiguous():
-        w_nk, w_store = True, w.t()
-    else:
-        raise ValueError("fused_quant_matmul: w must be a contiguous [K, N] "
-                         "tensor or the transpose of a contiguous [N, K] one")
+    w_nk, w_store = _gemm_plan.weight_storage(w, "fused_quant_matmul")
     sb, sh, sw, sc = x4.stride()
     if (k != k2 or k % 8 or n % 8 or x4.dtype not in _X_DTYPES
             or w.dtype not in (torch.bfloat16, torch.uint8)
@@ -122,14 +116,21 @@ def _matmul(x4, w, *, ka, kw, bias, act, quantize_x, nonneg, out_dtype):
         raise ValueError("fused_quant_matmul: operands must be 16-byte "
                          "aligned")
     recip, c_bias, c_scale = _consts(ka, kw)
+    try:  # rows at one pitch: x goes by TMA
+        a_pitch = x4.view(m, k).stride(0)
+    except RuntimeError:
+        a_pitch = 0
+    tiles = _gemm_plan.plan(m, k, n)
+    ws = _gemm_plan.workspace(tiles, m, n, x4.device)
     _build.launch(
         "fused_matmul", "slfp_fused_matmul", x4.data_ptr(),
-        int(x4.dtype == torch.float32), h * wd, wd, sb, sh, sw,
+        int(x4.dtype == torch.float32), h * wd, wd, sb, sh, sw, a_pitch,
         w_store.data_ptr(), int(w.dtype == torch.uint8), int(w_nk),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.float32), m, k, n, int(quantize_x),
         float(np.float32(recip)), int(nonneg), float(c_bias), float(c_scale),
-        int(act == "relu"), _build.stream_of(x4))
+        int(act == "relu"), *tiles, None if ws is None else ws.data_ptr(),
+        _build.stream_of(x4))
     fused_quant_matmul.launches += 1
     return out
 

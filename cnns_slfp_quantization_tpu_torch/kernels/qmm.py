@@ -18,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cnns_slfp_quantization_tpu_torch.kernels import _build
+from cnns_slfp_quantization_tpu_torch.kernels import _build, _gemm_plan
 from cnns_slfp_quantization_tpu_torch.kernels.epilogue import (
     epilogue_value_plain)
 from cnns_slfp_quantization_tpu_torch.kernels.quantize import act_quantize
@@ -64,8 +64,10 @@ def qmm_fused(
     quant_out_recip: Optional[float] = None,
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """x [M, K] bf16; w [K, N] bf16 values or uint8 codes; scale/shift f32
-    [N]; residual bf16 [M, N].  K and N must be multiples of 8 on the card.
+    """x [M, K] bf16; w [K, N] bf16 values or uint8 codes, contiguous or
+    the transpose of a contiguous [N, K] (the executor's storage, which the
+    kernel reads fastest); scale/shift f32 [N]; residual bf16 [M, N].  K and
+    N must be multiples of 8 on the card.
     """
     if x.device.type == "cpu":
         return qmm_plain(x, w, scale, shift, residual=residual, relu=relu,
@@ -84,19 +86,24 @@ def qmm_fused(
             f"qmm_fused: x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)} "
             f"{w.dtype}; needs bf16 x, bf16/uint8 w, K and N multiples of 8, "
             f"f32 scale/shift [N], bf16 residual [M, N]")
-    _build.check_cuda(x, w, scale, shift, residual)
+    w_nk, w_store = _gemm_plan.weight_storage(w, "qmm_fused")
+    _build.check_cuda(x, w_store, scale, shift, residual)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if not _build.aligned16(x, w, scale, shift, residual, out):
+    if not _build.aligned16(x, w_store, scale, shift, residual, out):
         raise ValueError("qmm_fused: operands must be 16-byte aligned")
+    tiles = _gemm_plan.plan(m, k, n, residual is not None)
+    ws = _gemm_plan.workspace(tiles, m, n, x.device)
     _build.launch(
-        "qmm", "slfp_qmm", x.data_ptr(), w.data_ptr(),
-        int(w.dtype == torch.uint8), scale.data_ptr(), shift.data_ptr(),
+        "qmm", "slfp_qmm", x.data_ptr(), w_store.data_ptr(),
+        int(w.dtype == torch.uint8), int(w_nk), scale.data_ptr(),
+        shift.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.float32), m, k, n,
         int(quant_in_recip is not None),
         float(np.float32(quant_in_recip or 1.0)), int(relu),
         int(quant_out_recip is not None),
-        float(np.float32(quant_out_recip or 1.0)), _build.stream_of(x))
+        float(np.float32(quant_out_recip or 1.0)), *tiles,
+        None if ws is None else ws.data_ptr(), _build.stream_of(x))
     qmm_fused.launches += 1
     return out
 

@@ -72,7 +72,8 @@ def bn_fold(bn: torch.nn.BatchNorm2d, kaw: float):
 
 @dataclasses.dataclass
 class Conv1x1:
-    w: torch.Tensor        # [K, N] bf16 values or uint8 codes, for K2
+    w: torch.Tensor        # [K, N] view of [N, K] storage (bf16 values or
+                           # uint8 codes), as K2 reads it fastest
     scale: torch.Tensor    # [N] f32, BN fold with Ka*Kw
     shift: torch.Tensor    # [N] f32
 
@@ -171,7 +172,7 @@ def prepare(model: ResNet50, *, device="cuda") -> FusedWeights:
         w = conv.weight.detach()                      # [N, K, 1, 1]
         if w.dtype != torch.uint8:                    # K2 decodes codes
             w = _bf16_values(w)
-        return Conv1x1(w=w[:, :, 0, 0].t().contiguous().to(device),
+        return Conv1x1(w=w[:, :, 0, 0].contiguous().to(device).t(),
                        scale=vec(s), shift=vec(t))
 
     def conv_kxk(conv, bn, sid, w=None, stride=None, pad=None):

@@ -75,13 +75,6 @@ class _QuantBase(nn.Module):
         self.compute_dtype = compute_dtype
         self.layer_id = layer_id
         self.use_pallas = use_pallas
-        # float32 scale constants as device tensors: a division by a tensor
-        # is a true division on every device (a Python scalar may become a
-        # reciprocal multiply)
-        self.register_buffer("ka32", torch.tensor(np.float32(ka)),
-                             persistent=False)
-        self.register_buffer("kw32", torch.tensor(np.float32(kw)),
-                             persistent=False)
         # JAX's weight quotient ``kernel / kw`` divides by a constant, which
         # XLA computes as ``kernel * f32(1/kw)``: the port multiplies by the
         # same float32 reciprocal, so its frozen and packed codes are JAX's
@@ -91,6 +84,15 @@ class _QuantBase(nn.Module):
         self.register_buffer("kaw32", torch.tensor(np.float32(ka)
                                                    * np.float32(kw)),
                              persistent=False)
+        # so do its float32 activation and bias quotients ``x / ka`` and
+        # ``bias / (ka * kw)``: the port multiplies by f32(1/ka) and
+        # f32(1/(ka*kw))
+        self.register_buffer("rka32", torch.tensor(np.float32(1)
+                                                   / np.float32(ka)),
+                             persistent=False)
+        self.register_buffer("rkaw32", torch.tensor(
+            np.float32(1) / (np.float32(ka) * np.float32(kw))),
+            persistent=False)
 
     def weight_frozen(self) -> torch.Tensor:
         """``Q(w/Kw)`` as stored (values or uint8 codes) or computed now."""
@@ -112,7 +114,7 @@ class _QuantBase(nn.Module):
                 return act_quantize(_nhwc(x), recip, **args).permute(
                     0, 3, 1, 2)
             return act_quantize(x.contiguous(), recip, **args)
-        return sfp.quantize_act(x / self.ka32, self.qbit)
+        return sfp.quantize_act(x * self.rka32, self.qbit)
 
     def operands(self, x):
         xq, wq = self.input_q(x), self.weight_q()
@@ -124,7 +126,7 @@ class _QuantBase(nn.Module):
 
     def rescale(self, y: torch.Tensor) -> torch.Tensor:
         if self.bias is not None:
-            b = self.bias / self.kaw32
+            b = self.bias * self.rkaw32
             y = y + (b[:, None, None] if y.dim() == 4 else b)  # NCHW: per C
         y = y * self.kaw32
         if self.compute_dtype is not None:

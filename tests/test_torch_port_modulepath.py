@@ -26,6 +26,7 @@ from cnns_slfp_quantization_tpu_torch.models import alexnet as talexnet
 from cnns_slfp_quantization_tpu_torch.models import squeezenet as tsqueezenet
 from cnns_slfp_quantization_tpu_torch.models.resnet50 import STAGES
 from cnns_slfp_quantization_tpu_torch.ops import freeze as tfreeze
+from cnns_slfp_quantization_tpu_torch.ops import sfp as tsfp
 from cnns_slfp_quantization_tpu_torch.ops.layers import relu
 from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
 from cnns_slfp_quantization_tpu_torch.train.checkpoint import (
@@ -332,6 +333,97 @@ def test_pack_matches_jax_pack_variables(setups):
                                       s["v_np"]["params"][name]["bias"])
     # the case the repair is about: a true division moves some codes
     assert n_true_division_differs > 0
+
+
+def _quotient_inputs(ka, shape, rng):
+    """float32 inputs of ``shape``, random signs, each at a rounding edge of
+    ``quantize_act`` where ``x / ka`` and ``x * f32(1/ka)`` quantize to
+    different values; the last entry of the leading axis is all zeros (its
+    outputs are the bias term alone)."""
+    ka = np.float32(ka)
+    r = np.float32(1) / ka
+    # quotients just at the half-way mantissa pattern of every 4-bit bin
+    # from 2**-4 to 2**4, and the x within 8 ulps of each quotient * ka
+    t = ((np.arange(123, 131)[:, None] << 23) | (np.arange(16) << 19)
+         | 0x40000).ravel().astype(np.int32).view(np.float32)
+    x0 = (t.astype(np.float64) * np.float64(ka)).astype(np.float32)
+    x = (x0.view(np.int32)[:, None] + np.arange(-8, 9)).ravel().view(
+        np.float32)
+    q = [tsfp.quantize_act(torch.from_numpy(v), 8).numpy()
+         for v in (x / ka, x * r)]
+    flips = x[q[0] != q[1]]
+    assert len(flips) > 16
+    out = flips[np.arange(int(np.prod(shape))) % len(flips)].reshape(shape)
+    out = out * rng.choice(np.float32([-1, 1]), shape)
+    out[-1] = 0
+    return out
+
+
+def _quotient_biases(ka, kw, n, rng):
+    """n float32 biases whose ``b / (ka*kw)`` differs from ``b * f32(1/(ka*
+    kw))`` (about one random bias in ten)."""
+    kaw = np.float32(ka) * np.float32(kw)
+    b = rng.standard_normal(64 * n).astype(np.float32) * np.float32(0.1)
+    b = b[b / kaw != b * (np.float32(1) / kaw)][:n]
+    assert len(b) == n
+    return b
+
+
+@pytest.mark.parametrize("kind", ["dense", "conv"])
+def test_f32_quotients_are_jax_reciprocal_multiplies(kind):
+    """At ``qbit=8, compute_dtype=None`` JAX computes ``quantize_act(x /
+    ka)`` and ``bias / (ka * kw)``; under jit XLA divides by the constant as
+    a multiply by its float32 reciprocal.  Inputs sit where a true division
+    lands in the other quantizer bin, biases where it rounds the other way;
+    weights are ``kw`` on one tap per output and 0 elsewhere, so every sum
+    has one term and is exact in any order.  The port must match bit for
+    bit."""
+    import flax.linen as fnn
+
+    from cnns_slfp_quantization_tpu.ops import layers as jlayers
+    from cnns_slfp_quantization_tpu_torch.ops import layers as tlayers
+
+    ka, kw, c = 0.37, 0.11, 16
+    rng = np.random.default_rng(0)
+    if kind == "dense":
+        x = _quotient_inputs(ka, (4, c), rng)
+        kernel = np.eye(c, dtype=np.float32) * np.float32(kw)
+        def jlayer():
+            return jlayers.QuantDense(c, qbit=8, ka=ka, kw=kw, name="layer")
+        tlayer = tlayers.QuantDense(c, c, qbit=8, ka=ka, kw=kw)
+    else:
+        x = _quotient_inputs(ka, (2, 5, 5, c), rng)
+        kernel = np.zeros((3, 3, c, c), np.float32)
+        kernel[1, 1] = np.eye(c, dtype=np.float32) * np.float32(kw)
+        def jlayer():
+            return jlayers.QuantConv(c, (3, 3), qbit=8, ka=ka, kw=kw,
+                                     padding=1, use_bias=True, name="layer")
+        tlayer = tlayers.QuantConv(c, c, 3, padding=1, use_bias=True,
+                                   qbit=8, ka=ka, kw=kw)
+
+    class One(fnn.Module):
+        @fnn.compact
+        def __call__(self, v):
+            return jlayer()(v)
+
+    jmodel = One()
+    v_np = {"params": {"layer": {
+        "kernel": kernel, "bias": _quotient_biases(ka, kw, c, rng)}}}
+    want = np.asarray(jax.jit(jmodel.apply)(v_np, jnp.asarray(x)))
+
+    class Wrap(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layer = tlayer
+
+    port = load_jax_variables(Wrap(), v_np).layer.eval()
+    with torch.no_grad():
+        xt = torch.from_numpy(x)
+        got = (port(xt) if kind == "dense"
+               else port(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+    got = got.contiguous().numpy()
+    assert np.isfinite(want).all() and (want != 0).mean() > 0.9
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_relu_yields_positive_zero():
