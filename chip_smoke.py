@@ -25,32 +25,42 @@
    time between CUDA events and the wmma design's time taken so.  K5
    (depthwise 3x3) must be bit-equal at MobileNetV1's 9 stride-1 sites
    (ImageNet at batch 64 and 256, CIFAR at 64) in three forms (serving:
-   bf16, ReLU, quantize; f32 out without ReLU; nonneg_in without ReLU) and
-   at odd shapes, and is timed against cuDNN's grouped conv alone and
-   against the grouped conv + K3 chain it replaces.  K6 (the bottleneck
-   chain) must be bit-equal on exact inputs (every sum exact in float32) at
-   narrow widths, odd shapes and every site of the chain path (stages 2 and
-   3 at batch 64, and stage 1, which the kernel also takes), give the same
-   bits in two launches, and on random inputs at those sites hold raw
+   bf16, ReLU, quantize; f32 out without ReLU; nonneg_in without ReLU) on
+   its FTZ route and in the serving form on its exact route (a subnormal
+   tap), and at odd shapes (subnormal f32 x included), and is timed on both
+   routes against cuDNN's grouped conv alone and against the grouped conv +
+   K3 chain it replaces.  K6 (the bottleneck chain) must be bit-equal on
+   exact inputs (every sum exact in float32), on its FTZ route and on its
+   exact route (a subnormal affine parameter), at narrow widths, odd
+   shapes, each kind of band its plan makes (a ragged last band, a band
+   split over a pair of blocks, whole 7x7 images at batch 256) and every
+   site of the chain path (stages 2 and 3 at batch 64, and stage 1, which
+   the kernel also takes), give the same bits in two launches, and on
+   random inputs at those sites hold raw
    outputs to cosine > 0.99999 and quantized ones to one step in at most 1%
    of elements (more than one step in at most 0.1%): it sums in another
    order, so a y1 or y2 value at a bin edge may flip.  It is timed against
    the route it replaces (K2 conv1, the f32 copy and cuDNN's 3x3, K3, K2
    conv3), and stage 0 must be refused.  Times are medians of 20 runs of 5
-   back-to-back calls between CUDA events, except K2's and K4's and their
-   ``torch.matmul`` yardsticks': kernels of a few microseconds, whose
-   device time torch.profiler gives (``bench_gemm.kernel_ms``), where
-   events would time the host.
+   back-to-back calls between CUDA events, except K2's, K4's and K5's and
+   their yardsticks' (``torch.matmul``, the grouped conv and its route):
+   kernels of a few microseconds, whose device time torch.profiler gives
+   (``profiling.kernel_ms``, which counts only runs that recorded every
+   kernel), where events would time the host; their event times are
+   printed beside.
 3. Paths, each with the launch counts reset just before it and read just
    after it, over requests of 64, 64 and 17 images:
-   - ResNet-50 fused executor, ``InferenceEngine("resnet", qbit=8)`` (K1 3,
-     K2 32, K3 21 per forward); then the same weights on the CPU (cosine >
-     0.995, same top-1), packed uint8 weights (bit-equal logits),
+   - ResNet-50 fused executor with K6 off, ``InferenceEngine("resnet",
+     qbit=8, policy={"chain": frozenset()})``, JAX's default placement (K1
+     3, K2 32, K3 21 per forward); then the same weights on the CPU
+     (cosine > 0.995, same top-1), packed uint8 weights (bit-equal logits),
      ``policy={"conv3": "torch"}`` (K3 dual 12 times per forward);
-   - ResNet-50 fused executor with ``policy={"chain": {2, 3}}`` (K1 5, K2
-     18, K3 14, K6 7 per forward), held against the default policy's logits
-     and the CPU's (cosine > 0.995, same top-1), packed weights (bit-equal
-     logits), images/s at batch 64 and 256 in turns with the default;
+   - ResNet-50 fused executor under the default policy,
+     ``InferenceEngine("resnet", qbit=8)``, which runs stages 2 and 3's
+     stride-1 bottlenecks on K6 (K1 5, K2 18, K3 14, K6 7 per forward),
+     held against chain off's logits and the CPU's (cosine > 0.995, same
+     top-1), packed weights (bit-equal logits), images/s at batch 64 and 256
+     in turns with chain off;
    - SqueezeNet 1.0 and AlexNet on the module path with packed weights,
      ``InferenceEngine(net, qbit=8, pack_weights=True, use_pallas=None)``
      (K4 17 and 3 per forward, K1 9 and 5); then the CPU (cosine > 0.995,
@@ -74,8 +84,8 @@
    path (``qbit=32, compute_dtype=None``), plus the fused executors' at
    batch 256.
 4. A torch.profiler breakdown per forward of the ResNet-50 fused executor
-   (default and ``chain={2,3}``), the MobileNetV1 fused executor (both
-   ``dw`` routes) and SqueezeNet 1.0's module path.
+   (default ``chain={2,3}`` and chain off), the MobileNetV1 fused executor
+   (both ``dw`` routes) and SqueezeNet 1.0's module path.
 
 The line before the last is one JSON object with, for each kernel, its
 launches over the run of its first path (``launches``, three forwards) and
@@ -103,6 +113,7 @@ import numpy as np
 REPO = pathlib.Path(__file__).resolve().parent
 PKG = "cnns_slfp_quantization_tpu_torch"
 B = 64
+NO_CHAIN = {"chain": frozenset()}   # ResNet-50 without K6 (JAX's default)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor cores
 F32_OPS = 67e12                # float32 outside the tensor cores
@@ -289,9 +300,8 @@ def main() -> int:
     from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
     from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
     from cnns_slfp_quantization_tpu_torch.utils import bench_gemm
-    from cnns_slfp_quantization_tpu_torch.utils.bench_gemm import kernel_ms
     from cnns_slfp_quantization_tpu_torch.utils.profiling import (
-        median_ms, throughput)
+        kernel_ms, median_ms, throughput)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -766,10 +776,25 @@ def main() -> int:
         t = randn(c, scale=0.1)
         return x, w, s, t
 
+    def k5_subnormal_tap(w):
+        """w with one tap subnormal: the wrapper takes the exact route."""
+        w = w.clone()
+        w[0, 0, 0] = 1e-40
+        return w
+
     def k5_check(shape, r):
+        """The three forms on the FTZ route, and the serving form on the
+        exact route (one subnormal tap), each bit-equal to the plain
+        version."""
         x, w, s, t = k5_inputs(shape)
-        for label, xx, ww, kw in k5_forms(x, w, s, t, r):
+        forms = [(label, xx, ww, kw, True)
+                 for label, xx, ww, kw in k5_forms(x, w, s, t, r)]
+        forms.append(("serve, exact route", x, k5_subnormal_tap(w),
+                      dict(relu=True, quant_out_recip=r), False))
+        for label, xx, ww, kw, ftz in forms:
+            before = k5.dw3x3.ftz_launches
             got = k5.dw3x3(xx, ww, scale=s, shift=t, **kw)
+            assert k5.dw3x3.ftz_launches - before == int(ftz), label
             want = k5.dw3x3_plain(xx, ww, s, t, **kw)
             torch.cuda.synchronize()
             assert same_bits(got, want), f"K5 {label} {shape} not bit-equal"
@@ -788,8 +813,19 @@ def main() -> int:
         for path, shape, per_fwd in cases:
             x, w, s, t = k5_check(shape, r)
             c = shape[-1]
-            ms = median_ms(lambda: k5.dw3x3(x, w, scale=s, shift=t, relu=True,
-                                            quant_out_recip=r))
+            # device time (profiler): events around these few-us kernels
+            # would time the wrapper's host work
+            # each route as the executor passes it, decided once
+            assert k5.ftz_route(w, s, t, r)
+            ms = kernel_ms(lambda: k5.dw3x3(x, w, scale=s, shift=t, relu=True,
+                                            quant_out_recip=r, ftz=True))
+            ems = median_ms(lambda: k5.dw3x3(x, w, scale=s, shift=t,
+                                             relu=True, quant_out_recip=r,
+                                             ftz=True))
+            w_sub = k5_subnormal_tap(w)
+            exact_ms = kernel_ms(lambda: k5.dw3x3(
+                x, w_sub, scale=s, shift=t, relu=True, quant_out_recip=r,
+                ftz=False))
             pms = median_ms(lambda: k5.dw3x3_plain(
                 x, w, s, t, relu=True, quant_out_recip=r), iters=5, inner=1)
             # the library call: cuDNN's grouped conv alone, on the same
@@ -797,13 +833,13 @@ def main() -> int:
             xn = x.permute(0, 3, 1, 2)
             wn = w.permute(2, 0, 1).unsqueeze(1).to(torch.bfloat16).contiguous(
                 memory_format=torch.channels_last)
-            lms = median_ms(lambda: F.conv2d(xn, wn, padding=1, groups=c))
+            lms = kernel_ms(lambda: F.conv2d(xn, wn, padding=1, groups=c))
             # the route it replaces (dw="torch"): f32 grouped conv of the
             # bf16 values, then K3, under the executor's flags
             conv = ConvKxK(w=wn.float(), scale=s, shift=t, stride=1, pad=1,
                            groups=c)
             with backend_flags():
-                chain = median_ms(lambda: k3.bn_epilogue(
+                chain = kernel_ms(lambda: k3.bn_epilogue(
                     _conv_f32(x, conv), s, t, relu=True, emit_raw=False,
                     quant_recip=r))
             n = x.numel()
@@ -814,18 +850,25 @@ def main() -> int:
                 rows["k5"].add(per_fwd, ms, pms, nbytes, ops, F32_OPS, lms,
                                path=path)
             print(f"  K5 {path} {shape} x{per_fwd}: {ms:.4f} ms "
-                  f"({nbytes / ms / 1e6:.0f} GB/s), plain {pms:.4f}, "
+                  f"({nbytes / ms / 1e6:.0f} GB/s; events {ems:.4f}; exact "
+                  f"route {exact_ms:.4f}, plan "
+                  f"{tuple(k5.plan(*shape[1:]))}), "
+                  f"plain {pms:.4f}, "
                   f"F.conv2d(groups=C) {lms:.4f}, grouped conv + K3 "
                   f"{chain:.4f} (A/B speedup {chain / ms:.3f}), bound "
                   f"{bms:.4f} ({by})", flush=True)
-        # H and W not multiples of the 8-row tile; C not a multiple of 8
-        # (the scalar path); f32 input; one pixel
-        for shape in ((3, 13, 11, 40), (2, 13, 11, 36), (4, 1, 1, 64)):
+        # H and W that split into uneven tiles and bands; C not a multiple
+        # of 8 and not of 4 (the scalar path); f32 input; one pixel
+        for shape in ((3, 13, 11, 40), (2, 13, 11, 36), (2, 13, 11, 30),
+                      (2, 37, 19, 64), (4, 1, 1, 64)):
             k5_check(shape, r)
         x, w, s, t = k5_inputs((2, 9, 10, 24))
         x = x.float()
-        assert same_bits(k5.dw3x3(x, w, scale=s, shift=t, relu=True),
-                         k5.dw3x3_plain(x, w, s, t, relu=True)), "K5 f32 x"
+        x[0, :, :, 1], x[1, :, :, 2] = 3e-39, -5e-40   # flushed by K5
+        for ww in (w, k5_subnormal_tap(w)):
+            assert same_bits(k5.dw3x3(x, ww, scale=s, shift=t, relu=True),
+                             k5.dw3x3_plain(x, ww, s, t, relu=True)), \
+                "K5 f32 x"
 
     # ------------------------------------------------------------------ K6
     def k6_sites():
@@ -937,26 +980,42 @@ def main() -> int:
 
     @phase("K6 bottleneck_chain")
     def k6_phase():
-        # exact inputs at narrow widths and odd shapes, then at every site
-        # of the path (and stage 1): bit-equal, both outputs
+        # exact inputs at narrow widths and odd shapes, bands of each kind
+        # the plan makes (two 64-row tiles a GEMM with a ragged last band:
+        # 13 rows in 7 + 6; 3-row bands split over pairs of blocks; whole
+        # 7x7 images on a two-stage ring, stage 3 at batch 256), then at
+        # every site of the path (and stage 1): bit-equal, both outputs
         rec0 = dict(recip2=rc[26], recip3=rc[27], recip_next=rc[28])
         narrow = [((1, 7, 7, 64, 16), True), ((2, 5, 6, 64, 16), False),
                   ((3, 7, 7, 64, 16), True), ((2, 14, 14, 64, 32), True),
-                  ((2, 9, 11, 48, 48), True)]
+                  ((2, 9, 11, 48, 48), True), ((64, 13, 13, 256, 64), True),
+                  ((16, 10, 10, 512, 128), False),
+                  ((256, 7, 7, 2048, 512), True)]
         narrow = [(shape, er, rec0) for shape, er in narrow]
         narrow += [(shape, er, rec) for _, shape, rec, er, _, _ in k6_sites()]
-        for (n, h, w, c, m), er, rec in narrow:
-            args = k6_exact(n, h, w, c, m, rec)
+        # the exact route (one subnormal a3 element) at three of them
+        narrow = [(shape, er, rec, False) for shape, er, rec in narrow] + [
+            (shape, er, rec, True) for shape, er, rec in
+            (narrow[4], narrow[5], narrow[-3])]
+        for (n, h, w, c, m), er, rec, sub in narrow:
+            args = list(k6_exact(n, h, w, c, m, rec))
+            if sub:
+                args[9] = args[9].clone()
+                args[9][0] = 1e-40
+            before = k6.bottleneck_chain.ftz_launches
             got = k6.bottleneck_chain(*args, **rec, emit_raw=er)
+            assert k6.bottleneck_chain.ftz_launches - before == int(not sub)
             want = k6.bottleneck_chain_plain(*args, **rec, emit_raw=er)
             torch.cuda.synchronize()
             for g, w_ in zip(got, want):
                 assert (g is None) == (w_ is None)
                 if g is not None:
                     assert same_bits(g, w_), \
-                        f"K6 exact {(n, h, w, c, m)} not bit-equal"
+                        f"K6 exact {(n, h, w, c, m)} (subnormal a3: " \
+                        f"{sub}) not bit-equal"
             assert len(got[1].unique()) > 8     # many quantizer bins
-        print(f"  K6 exact inputs: bit-equal at {len(narrow)} shapes",
+        print(f"  K6 exact inputs: bit-equal at {len(narrow)} shapes and "
+              f"routes",
               flush=True)
         # random inputs at every site: the sums run in another order than
         # the plain version's, so a y1 or y2 value near a bin edge may flip
@@ -989,7 +1048,10 @@ def main() -> int:
                     msg.append(f"q off by 1 step {one:.2e}, by more "
                                f"{more:.2e}")
                     assert one <= 1e-2 and more <= 1e-3, (key, one, more)
-            call = (lambda: k6.bottleneck_chain(*args, **kw))
+            # the route as the executor passes it, decided once
+            ftz = k6.ftz_route(args[5:], tuple(rec.values()))
+            assert ftz
+            call = (lambda: k6.bottleneck_chain(*args, **kw, ftz=ftz))
             ms = median_ms(call)
             pms = median_ms(lambda: k6.bottleneck_chain_plain(*args, **kw),
                             iters=5, inner=1)
@@ -1020,7 +1082,8 @@ def main() -> int:
             if per_fwd:
                 rows["k6"].add(per_fwd, ms, pms, nbytes, ops, BF16_FLOPS,
                                path="resnet_chain")
-            print(f"  K6 {key} {(n, h, w, c, m)} x{per_fwd}: {ms:.4f} ms "
+            print(f"  K6 {key} {(n, h, w, c, m)} x{per_fwd} (plan "
+                  f"{tuple(k6._plan(n, h, w, c, m))}): {ms:.4f} ms "
                   f"({ops / ms / 1e9:.1f} TFLOP/s), plain {pms:.4f}, route "
                   f"it replaces (K2 + cuDNN + K3 + K2) {rms:.4f} (A/B "
                   f"speedup {rms / ms:.3f}), bound {bms:.4f} ({by}); "
@@ -1073,11 +1136,13 @@ def main() -> int:
               f"{np.argmax(logits[2], -1)[:8]}", flush=True)
         return logits
 
-    @phase("path: InferenceEngine resnet SLFP8 fused executor")
+    @phase("path: InferenceEngine resnet SLFP8 fused executor, chain off")
     def slice_phase():
+        # K6 off: JAX's default placement, every bottleneck through K2,
+        # cuDNN and K3 (the port's default runs K6: chain_phase)
         t0 = time.perf_counter()
         eng = InferenceEngine("resnet", qbit=8, batch_size=B, image_size=224,
-                              seed=0)
+                              seed=0, policy=NO_CHAIN)
         print(f"  engine built in {time.perf_counter() - t0:.1f} s",
               flush=True)
         assert eng.fused
@@ -1086,7 +1151,7 @@ def main() -> int:
 
         t0 = time.perf_counter()
         cpu = InferenceEngine("resnet", qbit=8, batch_size=2, image_size=224,
-                              seed=0, device="cpu")
+                              seed=0, device="cpu", policy=NO_CHAIN)
         got = cpu.predict(requests[0][:2])
         c = cos(got, logits[0][:2])
         print(f"  CPU plain path on 2 images: cos {c:.6f}, top-1 "
@@ -1096,7 +1161,8 @@ def main() -> int:
         assert same_top1(got, logits[0][:2])
 
         packed = InferenceEngine("resnet", qbit=8, batch_size=B,
-                                 image_size=224, seed=0, pack_weights=True)
+                                 image_size=224, seed=0, pack_weights=True,
+                                 policy=NO_CHAIN)
         lp = packed.predict(requests[0])
         assert np.array_equal(lp.view(np.int32), logits[0].view(np.int32)), \
             "packed logits differ from float-frozen"
@@ -1104,7 +1170,7 @@ def main() -> int:
 
         eng3 = InferenceEngine("resnet", qbit=8, batch_size=B,
                                image_size=224, seed=0,
-                               policy={"conv3": "torch"})
+                               policy={"conv3": "torch", **NO_CHAIN})
         eng3.predict(requests[0][:1])
         kernels.reset_launches()
         l3 = eng3.predict(requests[0])
@@ -1132,22 +1198,22 @@ def main() -> int:
               f"b256 {tp['slfp8_b256'] / tp['fp32_b256']:.3f}", flush=True)
         return eng, logits[0]
 
-    @phase("path: InferenceEngine resnet SLFP8 fused executor, "
-           "chain={2,3} (K6)")
+    @phase("path: InferenceEngine resnet SLFP8 fused executor, default "
+           "policy: chain={2,3} (K6)")
     def chain_phase(fused_eng, fused_logits):
         eng = InferenceEngine("resnet", qbit=8, batch_size=B, image_size=224,
-                              seed=0, policy={"chain": {2, 3}})
+                              seed=0)
         logits = serve(eng, "resnet_chain", {
             "act_quantize": 5, "qmm_fused": 18, "bn_epilogue": 14,
             "bottleneck_chain": 7})
         c = cos(logits[0], fused_logits)
-        print(f"  against the default policy: cos {c:.6f}", flush=True)
+        print(f"  against chain off: cos {c:.6f}", flush=True)
         assert c > 0.995
         assert same_top1(logits[0], fused_logits)
 
         t0 = time.perf_counter()
         cpu = InferenceEngine("resnet", qbit=8, batch_size=2, image_size=224,
-                              seed=0, device="cpu", policy={"chain": {2, 3}})
+                              seed=0, device="cpu")
         got = cpu.predict(requests[0][:2])
         c = cos(got, logits[0][:2])
         print(f"  CPU plain path on 2 images: cos {c:.6f}, top-1 "
@@ -1157,8 +1223,7 @@ def main() -> int:
         assert same_top1(got, logits[0][:2])
 
         packed = InferenceEngine("resnet", qbit=8, batch_size=B,
-                                 image_size=224, seed=0, pack_weights=True,
-                                 policy={"chain": {2, 3}})
+                                 image_size=224, seed=0, pack_weights=True)
         lp = packed.predict(requests[0])
         assert np.array_equal(lp.view(np.int32), logits[0].view(np.int32)), \
             "packed logits differ from float-frozen under chain={2,3}"
@@ -1168,15 +1233,15 @@ def main() -> int:
         for bs in (64, 256):
             x = torch.from_numpy(rng.standard_normal(
                 (bs, 224, 224, 3)).astype(np.float32)).to(dev)
-            # in turns: default, chain, chain, default
+            # in turns: chain off, chain, chain, chain off
             d1 = throughput(lambda: fused_eng.forward(x), bs)
             c1 = throughput(lambda: eng.forward(x), bs)
             c2 = throughput(lambda: eng.forward(x), bs)
             d2 = throughput(lambda: fused_eng.forward(x), bs)
             tp[bs] = (c1, c2, d1, d2)
-            print(f"  throughput b{bs}: chain={{2,3}} {c1:.1f}, {c2:.1f}; "
-                  f"default {d1:.1f}, {d2:.1f} images/s; chain / default "
-                  f"{(c1 + c2) / (d1 + d2):.3f}", flush=True)
+            print(f"  throughput b{bs}: chain={{2,3}} (default) {c1:.1f}, "
+                  f"{c2:.1f}; chain off {d1:.1f}, {d2:.1f} images/s; chain "
+                  f"/ off {(c1 + c2) / (d1 + d2):.3f}", flush=True)
         return eng
 
     def images_per_s(eng, label, batch=B):
@@ -1446,8 +1511,8 @@ def main() -> int:
         mobilenetv1_module_phase(*mn[1:4])
     else:
         failures.append("mobilenetv1 module path: no fused logits to compare")
-    for eng, label in ((fused and fused[0], "resnet fused"),
-                       (ch, "resnet fused, chain={2,3}"),
+    for eng, label in ((fused and fused[0], "resnet fused, chain off"),
+                       (ch, "resnet fused, default: chain={2,3}"),
                        (sq, "squeezenet module path"),
                        (mn and mn[0], "mobilenetv1 fused"),
                        (mn and mn[4], "mobilenetv1 fused, dw=torch")):

@@ -15,92 +15,103 @@
 //
 // Bound on the H100: at ResNet-50's stage 2 (14x14, C 1024, M 256) and stage
 // 3 (7x7, C 2048, M 512) a launch at batch 64 moves 48-105 MB and does 27.9
-// GFLOP: about 30 us either way, so bytes and bf16 tensor-core operations
-// bound it alike.
+// GFLOP: about 30 us either way.  A block holds a band of one image, so
+// every block also streams the whole weight set (2.2 MB at stage 2, 8.9 MB
+// at stage 3) from L2; sharing each weight tile between two blocks by TMA
+// multicast measured slower on the H100 (the pair then moves in lockstep),
+// so the weights stream per block.  What bounds this design instead is the
+// issue of each K step (a stage's wait, the A fragments, four wgmmas, their
+// wait) and the epilogues' arithmetic (utils/bench_chain.py's cycles per
+// phase).
 //
-// Design (right and simple first).  One block of 256 threads computes a band
-// of `rows` output rows of one image.  The TPU kernel holds whole images and
-// all three weight matrices in VMEM; a block here has 227 KB of shared
-// memory, while the weights alone are 2.2 MB (stage 2) and 8.9 MB (stage 3).
-// So the weights stream from L2 in tiles of 32 rows, and only the band's
-// intermediates stay resident:
-//   - y1 over the band plus one halo row above and below, zero-padded, laid
-//     out on a row pitch of W + 2 pixels.  On that pitch the 3x3 conv's nine
-//     shifted operands are contiguous row ranges of y1 (offset dy*(W+2)+dx),
-//     so each tap is a plain wmma GEMM read straight from shared memory; the
-//     two padding columns of each output row are computed and dropped;
-//   - y2 over the band's pixels, compact.
-// Stage 2 runs in bands of 7 rows (225 KB; conv1 recomputes the 2 halo rows,
-// 7% more FLOPs for the block), stage 3 in bands of 4 and 3 rows so that
-// 128 blocks fill the 132 SMs at batch 64.  The wrapper
-// (kernels/chain.py::_plan) picks the band and checks the limits: at most 10
-// row tiles of 16 per GEMM (5 per warp) and 227 KB of shared memory; stage 0
-// (56x56) exceeds them even with one-row bands.  Each warp owns up to a 5 x 2
-// grid of 16x16 wmma bf16 -> f32 accumulators: two column tiles of a
-// 128-column chunk and half the row tiles, or, where one warp can hold all
-// of a GEMM's row tiles (stage 3's bands), two column tiles of a 256-column
-// chunk and every row tile, which halves the chunks and their pipeline
-// fills and keeps no warp idle (stage 3: 1.235 -> 0.929 ms a launch at
-// batch 64).  Operand tiles stream in through a ring of cp.async copies,
-// three tiles deep for conv1 (x and W1) and four for conv2 and conv3
-// (weights only), so that L2's latency hides behind the tensor cores.
-// Epilogues go through a 16x16 f32 staging tile per warp; the quantize
-// selects its 2**(ml/16) mantissa with a select tree, as the JAX kernel
-// does, since a per-lane table switch diverges.  Every block re-reads the
-// whole weight set from L2 (128 x 2.2 MB in stage 2).  What bounds it now
-// (utils/bench_chain.py): about a fifth of mma.sync's rate inside the
-// pipelines, with 8-20 wmma products per warp between two barriers, and
-// the epilogues, serial after each chunk (31% of a stage-2 block); wgmma,
-// TMA multicast across a cluster and deeper pipelines are later work.
-#include <mma.h>
+// Design (sm_90a), on the machinery of gemm_sm90.cuh (included, not
+// changed).  One block of two consumer warpgroups and one producer warp
+// computes a band of `rows` output rows of one image, as three GEMMs in
+// turn, each in chunks of output columns accumulated in registers by
+// wgmma m64n128k16 (A from registers, B from shared memory):
+//   conv1  A = the band's input pixels plus a halo row above and below,
+//          (rows + 2) * W rows loaded by TMA with the weights (one 2-D box
+//          of 64 rows a row tile, 128-byte swizzle; rows outside the image
+//          are loaded as whatever lies there and masked by the epilogue);
+//   conv2  A = y1 on a row pitch of W + 2 pixels, zero-padded: the nine
+//          taps are row shifts of dy * (W + 2) + dx, which no shared-memory
+//          descriptor can express (they are not 8-row aligned), so each
+//          lane of an ldmatrix names its own row; y1's pitch is M + 8
+//          elements, an odd multiple of 16 bytes, so the 8 rows an ldmatrix
+//          reads hit distinct banks; the padding columns of each output row
+//          are computed and dropped;
+//   conv3  A = y2, compact, by ldmatrix.
+// Rows of a GEMM form 1 or 2 row tiles of 64 (kernels/chain.py::_plan
+// picks the band so that they do): with 2, each warpgroup takes one row
+// tile of the same 128-column chunk; with 1, the two warpgroups take the
+// two halves of a 256-column chunk; either way they share every weight
+// tile.  Where bands would leave the card short of blocks, the plan gives
+// a band to a cluster of two blocks instead (split 2: stage 3 at batch 64,
+// whole 7x7 images): each computes half of every GEMM's output columns,
+// streams only its half of the weights, and writes its half of y1 and y2
+// into both blocks' shared memory (st.shared::cluster), each GEMM waiting
+// on an mbarrier that both blocks' consumer warps arrive on.  A whole
+// image fills its 64-row tiles where 4-row bands left half of them empty.
+// The weights land by TMA in the 128-byte-swizzled [K, N] layout
+// wgmma reads B from, in a ring of 2-4 stages guarded by full/empty
+// mbarriers and kept full by one lane of the producer warp, which walks
+// the single weight stream of the block in the consumers' order (conv1's
+// tiles, conv2's 9 taps x K steps, conv3's) so that the ring never drains
+// at a GEMM boundary; a chunk's epilogue runs while the next chunk's tiles
+// land.  Epilogues work straight from the accumulator registers (wgmma's
+// fragment layout: pairs of columns of two rows a thread), with no branch
+// inside their unrolled loops: conv1's and conv2's write bf16 pairs to y1
+// / y2 in shared memory, conflict-free on their pitch; conv3's reads the
+// identity of its chunk (loaded before the chunk's mainloop) and writes raw
+// and q as bf16 pairs.  Each epilogue is slfp::epilogue_value then the
+// chain's quantize, whose 2**(ml/16) mantissa comes from a 16-word table
+// in shared memory; their flushes fold into the FTZ forms of fma, add and
+// mul (kFtz) when the wrapper finds no subnormal affine parameter or
+// reciprocal, as K5's do.  No float atomics: two launches give the same
+// bits.
+#include "gemm_sm90.cuh"
 
-#include "slfp.cuh"
+#ifdef CHAIN_PHASES
+// utils/bench_chain.py builds a copy with -DCHAIN_PHASES: thread 0 adds the
+// clock64 cycles of each phase of its block to g_phase[k]
+__device__ unsigned long long g_phase[8];
+extern "C" int chain_phases(unsigned long long* host, int zero) {
+  if (zero) {
+    const unsigned long long z[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    return static_cast<int>(cudaMemcpyToSymbol(g_phase, z, sizeof(z)));
+  }
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase)));
+}
+#define PHASE(k)                                                    \
+  if (threadIdx.x == 0) {                                           \
+    const long long t_ = clock64();                                 \
+    atomicAdd(&g_phase[k], static_cast<unsigned long long>(t_ - t_mark)); \
+    t_mark = t_;                                                    \
+  }
+#else
+#define PHASE(k)
+#endif
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+constexpr int kWG = 2;                       // consumer warpgroups
+constexpr int kConsumers = 128 * kWG;
+constexpr int kThreads = kConsumers + 32;    // + the producer warp
+constexpr int kBK = 64;                      // K step: 128 bytes of bf16
+constexpr int kMaxTiles = kWG;               // 64-row tiles of one GEMM
+constexpr int kMaxStages = 4;
+constexpr int kXTile = 64 * 128;             // bytes of a 64-row x tile
+constexpr int kSmemLimit = 232448;
 
-constexpr int kThreads = 256, kWarps = 8;
-constexpr int kBK = 32;            // K step of every GEMM
-constexpr int kNC = 128;           // output channels per narrow chunk
-constexpr int kMaxRowTiles = 10;   // 16-row tiles of one GEMM
-constexpr int kHalf = kMaxRowTiles / 2;
-constexpr int kLdA = kBK + 16;     // staged x tile pitch: 32-byte rows
-constexpr int kStagesX = 3;        // ring depth of conv1 (x and W1 tiles)
-constexpr int kStagesW = 4;        // ring depth of conv2 and conv3
-
-// bytes of a staged weight tile [kBK x nc] on a pitch of nc + 16
-__host__ __device__ constexpr int tile_b_bytes(int nc) {
-  return 2 * kBK * (nc + 16);
+// output columns of a chunk: the warpgroups split it when a GEMM has one
+// row tile
+__host__ __device__ constexpr int chunk_cols(int tiles) {
+  return tiles == 1 ? 128 * kWG : 128;
 }
-// columns per chunk of a GEMM with tm row tiles: 256 when one warp holds
-// all its row tiles, else 128 with the row tiles split in two halves
-__host__ __device__ constexpr int chunk_cols(int tm) {
-  return tm <= kHalf ? 2 * kNC : kNC;
-}
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-struct Params {
-  const uint16_t* x;
-  const uint16_t* idn;
-  const uint16_t* w1;
-  const uint16_t* w2;
-  const uint16_t* w3;
-  const float *a1, *b1, *a2, *b2, *a3, *b3;
-  uint16_t* raw;
-  uint16_t* q;
-  int h, w, c, m, rows;
-  float recip2, recip3, recip_next;
-  // derived from the above (chain_geometry)
-  int wp, tm1, tm2, tm3, y1r, ld, tile_a, ring;
-};
 
 struct Geometry {
-  int wp, tm1, tm2, tm3, y1r, ld, tile_a, ring;
+  int wp, p1, p2, p3, t1, t2, t3, ld, y1r, y2r, stage_bytes, stages;
   long long smem;
 };
 
@@ -108,415 +119,513 @@ struct Geometry {
 Geometry chain_geometry(int w, int m, int rows) {
   Geometry g;
   g.wp = w + 2;
-  g.tm1 = ((rows + 2) * g.wp + 15) / 16;   // conv1 rows: band + halo
-  g.tm2 = (rows * g.wp + 15) / 16;         // conv2 rows on the padded pitch
-  g.tm3 = (rows * w + 15) / 16;            // conv3 rows: the band's pixels
-  int need = g.tm2 * 16 + 2 * g.wp + 2;    // last row a shifted tap reads
-  if (need < g.tm1 * 16) need = g.tm1 * 16;
-  g.y1r = (need + 15) / 16 * 16;
-  g.ld = m + 16;
-  g.tile_a = 2 * g.tm1 * 16 * kLdA;        // bytes of one staged x tile
-  g.ring = kStagesX * (g.tile_a + tile_b_bytes(chunk_cols(g.tm1)));
-  const int w2 = kStagesW * tile_b_bytes(chunk_cols(g.tm2));
-  const int w3 = kStagesW * tile_b_bytes(chunk_cols(g.tm3));
-  if (g.ring < w2) g.ring = w2;
-  if (g.ring < w3) g.ring = w3;
-  g.smem = 2LL * g.y1r * g.ld + 2LL * g.tm3 * 16 * g.ld + g.ring +
-           4LL * kWarps * 256;
+  g.p1 = (rows + 2) * w;           // conv1 rows: the band's pixels + halo
+  g.p2 = rows * g.wp;              // conv2 rows on the padded pitch
+  g.p3 = rows * w;                 // conv3 rows: the band's pixels
+  g.t1 = (g.p1 + 63) / 64;
+  g.t2 = (g.p2 + 63) / 64;
+  g.t3 = (g.p3 + 63) / 64;
+  g.ld = m + 8;
+  g.y1r = (rows + 2) * g.wp + 2;   // + the last taps' overrun
+  g.y2r = g.p3;
+  int sb = g.t1 * kXTile + 128 * chunk_cols(g.t1);
+  if (sb < 128 * chunk_cols(g.t2)) sb = 128 * chunk_cols(g.t2);
+  if (sb < 128 * chunk_cols(g.t3)) sb = 128 * chunk_cols(g.t3);
+  g.stage_bytes = sb;
+  const long long fixed =
+      1024 + 2LL * g.ld * (g.y1r + g.y2r) + 16LL * kMaxStages + 16;
+  const long long st = (kSmemLimit - fixed) / sb;
+  g.stages = static_cast<int>(st < kMaxStages ? st : kMaxStages);
+  // at least two stages: what does not fit shows in smem
+  g.smem = fixed + static_cast<long long>(g.stages > 2 ? g.stages : 2) * sb;
   return g;
 }
 
-// 23-bit mantissa field of float32(2**(ml/16)) by a select tree: a table
-// indexed per lane would diverge or go through local memory
-__device__ __forceinline__ int32_t p_select(int32_t ml) {
-  const bool b0 = ml & 1, b1 = ml & 2, b2 = ml & 4, b3 = ml & 8;
-  const int32_t t0 = b0 ? 0x5AAC3 : 0x0, t1 = b0 ? 0x11C3D3 : 0xB95C2;
-  const int32_t t2 = b0 ? 0x1EF532 : 0x1837F0, t3 = b0 ? 0x2D583F : 0x25FED7;
-  const int32_t t4 = b0 ? 0x3D08A4 : 0x3504F3, t5 = b0 ? 0x4E248C : 0x45672A;
-  const int32_t t6 = b0 ? 0x60CCDF : 0x5744FD, t7 = b0 ? 0x75257D : 0x6AC0C7;
-  const int32_t u0 = b1 ? t1 : t0, u1 = b1 ? t3 : t2;
-  const int32_t u2 = b1 ? t5 : t4, u3 = b1 ? t7 : t6;
-  const int32_t v0 = b2 ? u1 : u0, v1 = b2 ? u3 : u2;
-  return b3 ? v1 : v0;
+struct Params {
+  const uint16_t* idn;
+  const float *a1, *b1, *a2, *b2, *a3, *b3;
+  uint16_t* raw;
+  uint16_t* q;
+  long long pixels;                // N * H * W
+  int h, w, c, m, rows;
+  float recip2, recip3, recip_next;
+  int wp, p1, p2, p3, t1, t2, t3, ld, y1r, stage_bytes, stages;
+  int split;                       // blocks sharing a band's columns: 1, 2
+};
+
+// ---------------------------------------- a band's columns over two blocks
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// the chain's quantize: bf16(slfp34_act_bits(v * recip)) on float32 v
-// (slfp.cuh::slfp34_act_f32 with the select tree), for v >= 0 or any v
-__device__ __forceinline__ uint16_t chain_q(float v, float recip) {
-  const int32_t bits = __float_as_int(slfp::ftz(__fmul_rn(slfp::ftz(v),
-                                                          recip)));
+// the shared address ``a`` of this block, in block ``rank`` of the cluster
+__device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t a, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(a), "r"(v)
+               : "memory");
+}
+
+// arrive, with release at cluster scope, on the mbarrier at cluster
+// address ``a``
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t a) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
+          a)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "%1;\n\t"
+      "@P1 bra DONE;\n\t"
+      "bra LAB_WAIT;\n\t"
+      "DONE:\n\t}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  float d;
+  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(d) : "f"(a), "f"(b), "f"(c));
+  return d;
+}
+
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float d;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float d;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// slfp::epilogue_value(y, a, b, r != nullptr, *r, true): the affine, the
+// residual and ReLU, each rounded once and flushed.  kFtz: by the FTZ
+// forms of the instructions, equal when a and b are not subnormal (the
+// wrapper checks them once per tensor); the residual add's FTZ form equals
+// its explicit flushes always.
+template <bool kFtz>
+__device__ __forceinline__ float epi_value(float y, float a, float b,
+                                           const float* r) {
+  float v = kFtz ? fma_ftz(y, a, b) : slfp::ftz(__fmaf_rn(slfp::ftz(y), a, b));
+  if (r != nullptr)
+    v = kFtz ? add_ftz(v, *r) : slfp::ftz(__fadd_rn(v, slfp::ftz(*r)));
+  return v > 0.f ? v : 0.f;
+}
+
+// the chain's quantize: bf16(slfp34_act_bits(v * recip)) on a flushed
+// float32 v (an epilogue value; slfp.cuh::slfp34_act_f32), for v >= 0 or
+// any v.  ptab[j] is the 23-bit mantissa field of float32(2**(ml/16)) for
+// the rounded 4 bits j (ml = j, or j + 1 where the codebook skips an entry),
+// a 16-word table in shared memory: one load where a select tree took some
+// twenty instructions, without the divergence of a per-lane register table.
+template <bool kFtz>
+__device__ __forceinline__ uint32_t chain_q(float v, float recip,
+                                           const int32_t* ptab) {
+  // kFtz: recip is not subnormal
+  const int32_t bits = __float_as_int(
+      kFtz ? mul_ftz(v, recip) : slfp::ftz(__fmul_rn(v, recip)));
   const int32_t sign = bits & static_cast<int32_t>(0x80000000u);
   const int32_t ab = bits & 0x7FFFFFFF;
   const int32_t r = (ab + 0x3FFFF + ((ab >> 19) & 1)) & -0x80000;
-  const int32_t j = (r >> 19) & 15;
-  int32_t out = (r & -0x00800000) | p_select(j + ((slfp::kMlMagic >> j) & 1));
+  int32_t out = (r & -0x00800000) | ptab[(r >> 19) & 15];
   if (ab < slfp::kI32Lo) out = (ab == 0) ? 0 : slfp::kI32PseudoZero;
   else if (ab < slfp::kI32Eighth) out = slfp::kI32Eighth;
   if (ab > slfp::kI32ClampSlfp) out = slfp::kI32ClampSlfp;
   return slfp::bf16_bits(__int_as_float(out | sign));
 }
 
-__device__ __forceinline__ uint4 pack8(const uint16_t (&h)[8]) {
-  uint4 u;
-  u.x = h[0] | (static_cast<uint32_t>(h[1]) << 16);
-  u.y = h[2] | (static_cast<uint32_t>(h[3]) << 16);
-  u.z = h[4] | (static_cast<uint32_t>(h[5]) << 16);
-  u.w = h[6] | (static_cast<uint32_t>(h[7]) << 16);
-  return u;
+// epilogue value of sums v with column parameters a, b, then the quantize
+template <bool kFtz>
+__device__ __forceinline__ uint32_t epi_q(float v, float a, float b,
+                                          float recip, const int32_t* ptab) {
+  return chain_q<kFtz>(epi_value<kFtz>(v, a, b, nullptr), recip, ptab);
 }
 
-__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+// The mainloop of one chunk: ``steps`` K steps from the ring, each up to 4
+// k16 slabs of m64n128k16 wgmmas into acc.  load_a(stage, step, slabs, fr)
+// fills the A fragments of the warp's 16 rows; ``kdim`` is the K of one
+// tap (for the slabs of a ragged last step); the B tile of the step sits at
+// b_off in its stage, and this warpgroup's 128 columns at col_off bytes
+// past it.
+template <class LoadA>
+__device__ __forceinline__ void mainloop(float (&acc)[64], int steps,
+                                         int steps_per_tap, int kdim,
+                                         uint32_t& it, const Params& p,
+                                         uint8_t* ring, uint32_t full0,
+                                         uint32_t empty0, int b_off,
+                                         int col_off, LoadA load_a) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    v[2 * k] = __uint_as_float(w[k] << 16);
-    v[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int step = 0; step < steps; ++step, ++it) {
+    const int slot = it % p.stages;
+    gemm::mbar_wait(full0 + 8 * slot, (it / p.stages) & 1);
+    uint8_t* stage = ring + slot * p.stage_bytes;
+    const int k0 = (step % steps_per_tap) * kBK;
+    const int slabs = min(4, (kdim - k0 + 15) / 16);
+    const uint32_t b_u = gemm::smem_u32(stage + b_off) + col_off;
+    // a full step compiles to four unconditional wgmmas
+    auto mma = [&](auto full) {
+      const int sl = decltype(full)::value ? 4 : slabs;
+      uint32_t fr[4][4];
+      load_a(stage, step, sl, fr);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) gemm::fence_operand(acc[i]);
+      gemm::wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        if (s < sl) gemm::wgmma_rs<1>(acc, fr[s], gemm::b_desc(b_u, s, false));
+      gemm::wgmma_commit();
+    };
+    if (slabs == 4)
+      mma(std::true_type());
+    else
+      mma(std::false_type());
+    gemm::wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) gemm::fence_operand(acc[i]);
+    gemm::mbar_arrive(empty0 + 8 * slot);
   }
 }
 
-// 16-byte asynchronous copy global -> shared; zero fill when !pred
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// how the 8 warps share one GEMM of tm row tiles, chunk by chunk of nc
-// output columns: warp w owns column tiles ct0, ct0 + 1 and row tiles
-// rt0 .. rt0 + nrt - 1
-struct Tiling {
-  int nc, ldb, rt0, nrt, ct0;
-};
-
-__device__ __forceinline__ Tiling tiling(int tm, int warp) {
-  Tiling t;
-  t.nc = chunk_cols(tm);
-  t.ldb = t.nc + 16;
-  if (t.nc > kNC) {
-    t.rt0 = 0;
-    t.nrt = tm;
-    t.ct0 = warp * 2;
-  } else {
-    const int half = (tm + 1) / 2;
-    t.rt0 = (warp / 4) * half;
-    t.nrt = max(0, min(half, tm - t.rt0));
-    t.ct0 = (warp % 4) * 2;
-  }
-  return t;
-}
-
-// weight tile [kBK x nc] of a row-major [K, N] matrix, nc / 64 chunks of 8
-// a thread
-__device__ __forceinline__ void issue_b(bf16* bs, const Tiling& t,
-                                        const uint16_t* w, int K, int N,
-                                        int k0, int n0, int tid) {
-  const int per_row = t.nc / 8;
+// A fragments of k16 slabs 0..sl-1 from an unswizzled bf16 matrix at
+// shared address base, pitch ld elements: lane l names row ``row`` (its
+// row of the ldmatrix) and column k0 + 16 s + 8 (l / 16)
+__device__ __forceinline__ void ldm_rows(uint32_t base, int row, int ld,
+                                         int k0, int lane, int sl,
+                                         uint32_t (&fr)[4][4]) {
+  const uint32_t a = base + (row * ld + k0 + 8 * (lane >> 4)) * 2;
 #pragma unroll
-  for (int i = 0; i < 2 * kNC / 64; ++i) {
-    if (i >= t.nc / 64) break;
-    const int id = tid + i * kThreads;
-    const int row = id / per_row, col = (id % per_row) * 8;
-    const int k = k0 + row;
-    const int n = n0 + col;
-    const bool ok = k < K && n < N;
-    cp16(bs + row * t.ldb + col,
-         ok ? w + static_cast<long long>(k) * N + n : w, ok);
-  }
+  for (int s = 0; s < 4; ++s)
+    if (s < sl) gemm::ldmatrix_x4(a + 32 * s, fr[s]);
 }
 
-// padded-pitch row j of y1 -> the input pixel it is computed from, or -1
-// for the zero padding (outside the image or past the band)
-__device__ __forceinline__ int y1_pixel(const Params& p, int r0, int j) {
-  if (j >= (p.rows + 2) * p.wp) return -1;
-  const int row = r0 - 1 + j / p.wp;
-  const int col = j % p.wp - 1;
-  if (row < 0 || row >= p.h || col < 0 || col >= p.w) return -1;
-  return row * p.w + col;
-}
-
-// x tile [tm1*16 x kBK] of the band's y1 rows, up to 3 chunks of 8 a thread
-__device__ __forceinline__ void issue_x(bf16* as, const Params& p,
-                                        const uint16_t* xn, int r0, int k0,
-                                        int tid) {
-  const int total = p.tm1 * 16 * (kBK / 8);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const int id = tid + i * kThreads;
-    if (id < total) {
-      const int pix = y1_pixel(p, r0, id >> 2);
-      const int k = k0 + (id & 3) * 8;
-      const bool ok = pix >= 0 && k < p.c;
-      cp16(as + (id >> 2) * kLdA + (id & 3) * 8,
-           ok ? xn + static_cast<long long>(pix) * p.c + k : xn, ok);
-    }
-  }
-}
-
-// a ring of S stages: step s's copies are one commit group, issued S - 1
-// steps ahead; compute(s, stage) runs once every thread's copies of step s
-// have landed.  Ends with the ring drained and the block synchronised.
-template <int S, class Issue, class Compute>
-__device__ __forceinline__ void pipeline(int nsteps, Issue issue,
-                                         Compute compute) {
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < nsteps) issue(s, s);
-    cp_commit();
-  }
-  for (int s = 0; s < nsteps; ++s) {
-    cp_wait<S - 2>();
-    __syncthreads();
-    compute(s, s % S);
-    const int nx = s + S - 1;
-    if (nx < nsteps) issue(nx, nx % S);
-    cp_commit();
-  }
-  cp_wait<0>();
-  __syncthreads();
-}
-
-// acc[i][j] += A[row tile rt0 + i] @ Bs[:, column tile ct0 + j] over ksub
-// steps of 16; `a` points at the A operand's first column of this K step
-__device__ __forceinline__ void mma_step(FragC (&acc)[kHalf][2],
-                                         const bf16* a, int lda, int rt0,
-                                         int nrt, const bf16* bs, int ldb,
-                                         int ksub, int ct0, int nct) {
-  for (int kk = 0; kk < ksub; ++kk) {
-    FragB b[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (j < nct) {
-        wmma::load_matrix_sync(b[j], bs + kk * 16 * ldb + (ct0 + j) * 16,
-                               ldb);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) {
-      if (i < nrt) {
-        FragA fa;
-        wmma::load_matrix_sync(
-            fa, a + static_cast<long long>(rt0 + i) * 16 * lda + kk * 16,
-            lda);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (j < nct) wmma::mma_sync(acc[i][j], fa, b[j], acc[i][j]);
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_acc(FragC (&acc)[kHalf][2]) {
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-}
-
-// one accumulator tile through the warp's staging tile: lane l gets row
-// l / 2, columns (l % 2) * 8 .. + 8
-__device__ __forceinline__ void tile_row8(float* st, const FragC& f, int lane,
-                                          float (&v)[8]) {
-  wmma::store_matrix_sync(st, f, 16, wmma::mem_row_major);
-  __syncwarp();
-  const float* s = st + (lane >> 1) * 16 + (lane & 1) * 8;
-  const float4 p0 = *reinterpret_cast<const float4*>(s);
-  const float4 p1 = *reinterpret_cast<const float4*>(s + 4);
-  v[0] = p0.x; v[1] = p0.y; v[2] = p0.z; v[3] = p0.w;
-  v[4] = p1.x; v[5] = p1.y; v[6] = p1.z; v[7] = p1.w;
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(kThreads, 1) chain_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* y1p = reinterpret_cast<bf16*>(smem);
-  bf16* y2 = y1p + p.y1r * p.ld;
-  unsigned char* ring =
-      reinterpret_cast<unsigned char*>(y2 + p.tm3 * 16 * p.ld);
+template <bool kFtz>
+__global__ void __launch_bounds__(kThreads, 1)
+    chain_kernel(const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tw1,
+                 const __grid_constant__ CUtensorMap tw2,
+                 const __grid_constant__ CUtensorMap tw3, const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring =
+      smem_raw + ((1024 - (gemm::smem_u32(smem_raw) & 1023)) & 1023);
+  uint16_t* y1 = reinterpret_cast<uint16_t*>(ring + p.stages * p.stage_bytes);
+  uint16_t* y2 = y1 + p.y1r * p.ld;
+  const uint32_t full0 = gemm::smem_u32(y2 + p.p3 * p.ld);
+  const uint32_t empty0 = full0 + 8 * kMaxStages;
+  // y1, then y2, complete in this block (split: both blocks' halves)
+  const uint32_t ready0 = empty0 + 8 * kMaxStages;
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  float* st = reinterpret_cast<float*>(ring + p.ring) + warp * 256;
-
   const int img = blockIdx.y;
   const int r0 = blockIdx.x * p.rows;
-  const int r_eff = min(p.rows, p.h - r0);
-  const long long hw = static_cast<long long>(p.h) * p.w;
-  const uint16_t* xn = p.x + img * hw * p.c;
-  const int lr = lane >> 1, lc = (lane & 1) * 8;
+  const int ch1 = chunk_cols(p.t1), ch2 = chunk_cols(p.t2);
+  const int ch3 = chunk_cols(p.t3);
+  // split: block z of the pair computes columns [lo, hi) of every GEMM
+  // and writes its halves of y1 and y2 into both blocks
+  const uint32_t rank = blockIdx.z, partner = rank ^ 1;
+  const int m_lo = rank * (p.m / p.split), m_hi = m_lo + p.m / p.split;
+  const int c_lo = rank * (p.c / p.split), c_hi = c_lo + p.c / p.split;
 
-  // y1 rows that conv1 does not write but the shifted taps read: zeros
-  {
-    uint4* z = reinterpret_cast<uint4*>(y1p + p.tm1 * 16 * p.ld);
-    const int n = (p.y1r - p.tm1 * 16) * p.ld / 8;
-    for (int i = tid; i < n; i += kThreads) z[i] = make_uint4(0, 0, 0, 0);
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      gemm::mbar_init(full0 + 8 * s, 1);
+      gemm::mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    gemm::mbar_init(ready0, p.split * (kConsumers / 32));
+    gemm::mbar_init(ready0 + 8, p.split * (kConsumers / 32));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // y1's padding (and everything else) starts at zero, before the partner
+  // may write into it
+  if (tid < kConsumers) {
+    uint4* z = reinterpret_cast<uint4*>(y1);
+    const int n = p.y1r * p.ld / 8;
+    for (int i = tid; i < n; i += kConsumers) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  if (p.split > 1) cluster_sync();
+
+  if (tid >= kConsumers) {
+    // ------------------------------------------------ producer: one lane
+    if (tid != kConsumers) return;
+    const uint32_t ring_u = gemm::smem_u32(ring);
+    uint32_t it = 0;
+    // wait for a free slot, then load the step's x tiles (conv1) and
+    // weight boxes [64 k x 64 n] of columns n0.. (those left of N)
+    auto step = [&](const CUtensorMap* map, int n0, int cols, int ncols,
+                    int krow, int kx) {
+      const int slot = it % p.stages;
+      gemm::mbar_wait(empty0 + 8 * slot, ((it / p.stages) & 1) ^ 1);
+      const uint32_t base = ring_u + slot * p.stage_bytes;
+      const uint32_t full = full0 + 8 * slot;
+      const long long xrow0 =
+          static_cast<long long>(img) * p.h * p.w +
+          static_cast<long long>(r0 - 1) * p.w;
+      int tiles = 0, boxes = 0;
+      if (kx >= 0)
+        for (int t = 0; t < p.t1; ++t) {
+          const long long row = xrow0 + 64 * t;
+          tiles += row + 64 > 0 && row < p.pixels;
+        }
+      for (int j = 0; j < cols / 64; ++j) boxes += n0 + 64 * j < ncols;
+      gemm::mbar_arrive_tx(full, (tiles + boxes) * kXTile);
+      if (kx >= 0)
+        for (int t = 0; t < p.t1; ++t) {
+          const long long row = xrow0 + 64 * t;
+          if (row + 64 > 0 && row < p.pixels)
+            gemm::tma_load_2d(base + t * kXTile, &tx, full, kx,
+                              static_cast<int>(row));
+        }
+      const uint32_t b = base + (kx >= 0 ? p.t1 * kXTile : 0);
+      for (int j = 0; j < cols / 64; ++j)
+        if (n0 + 64 * j < ncols)
+          gemm::tma_load_2d(b + j * kXTile, map, full, n0 + 64 * j, krow);
+      ++it;
+    };
+    for (int n0 = m_lo; n0 < m_hi; n0 += ch1)
+      for (int k0 = 0; k0 < p.c; k0 += kBK) step(&tw1, n0, ch1, m_hi, k0, k0);
+    for (int n0 = m_lo; n0 < m_hi; n0 += ch2)
+      for (int tap = 0; tap < 9; ++tap)
+        for (int k0 = 0; k0 < p.m; k0 += kBK)
+          step(&tw2, n0, ch2, m_hi, tap * p.m + k0, -1);
+    for (int n0 = c_lo; n0 < c_hi; n0 += ch3)
+      for (int k0 = 0; k0 < p.m; k0 += kBK)
+        step(&tw3, n0, ch3, c_hi, k0, -1);
+    return;
   }
 
-  FragC acc[kHalf][2];
+  // --------------------------------------------- consumer warpgroups
+  const int wg = tid / 128, t = tid % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, q = lane % 4;
+  // this lane's row of an ldmatrix within the warpgroup's 64
+  const int lrow = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const uint32_t y1_u = gemm::smem_u32(y1), y2_u = gemm::smem_u32(y2);
+  const int r_eff = min(p.rows, p.h - r0);
+  uint32_t it = 0;
+  float acc[64];
+#ifdef CHAIN_PHASES
+  long long t_mark = clock64();
+#endif
+
+  __shared__ int32_t ptab[16];
+  if (tid < 16) ptab[tid] = slfp::p_table(tid + ((slfp::kMlMagic >> tid) & 1));
+  gemm::named_bar_sync(1, kConsumers);   // ptab
+  // every consumer warp of both blocks has written its part of y1 (k = 0)
+  // or y2 (k = 1); split: into both blocks
+  auto ready = [&](int k) {
+    if (p.split == 1) {
+      gemm::named_bar_sync(1, kConsumers);
+      return;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive_cluster(ready0 + 8 * k);
+      mbar_arrive_cluster(mapa(ready0 + 8 * k, partner));
+    }
+    mbar_wait_cluster(ready0 + 8 * k, 0);
+  };
 
   // ---- conv1: y1 = Q2(relu(fma(x @ W1, a1, b1))) on the padded pitch ----
   {
-    const Tiling t = tiling(p.tm1, warp);
-    const int rt0 = t.rt0, nrt = t.nrt, ct0 = t.ct0;
-    // a ring stage holds an x tile and a weight tile
-    const int stride = p.tile_a + tile_b_bytes(t.nc);
-    const int ksteps = (p.c + kBK - 1) / kBK;
-    for (int n0 = 0; n0 < p.m; n0 += t.nc) {
-      const int nct = max(0, min(2, min(t.nc, p.m - n0) / 16 - ct0));
-      zero_acc(acc);
-      pipeline<kStagesX>(
-          ksteps,
-          [&](int s, int stage) {
-            issue_x(reinterpret_cast<bf16*>(ring + stage * stride), p, xn,
-                    r0, s * kBK, tid);
-            issue_b(reinterpret_cast<bf16*>(ring + stage * stride +
-                                            p.tile_a),
-                    t, p.w1, p.c, p.m, s * kBK, n0, tid);
-          },
-          [&](int s, int stage) {
-            mma_step(acc, reinterpret_cast<bf16*>(ring + stage * stride),
-                     kLdA, rt0, nrt,
-                     reinterpret_cast<bf16*>(ring + stage * stride +
-                                             p.tile_a),
-                     t.ldb, min(2, (p.c - s * kBK) / 16), ct0, nct);
-          });
+    const int rt = wg % p.t1, cw = (wg / p.t1) * 128;
+    for (int n0 = m_lo; n0 < m_hi; n0 += ch1) {
+      mainloop(acc, (p.c + kBK - 1) / kBK, 1 << 30, p.c, it, p, ring, full0,
+               empty0, p.t1 * kXTile, cw * 128,
+               [&](uint8_t* stage, int, int sl, uint32_t(&fr)[4][4]) {
+                 const uint32_t a =
+                     gemm::smem_u32(stage + rt * kXTile + lrow * 128);
 #pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
+                 for (int s = 0; s < 4; ++s)
+                   if (s < sl)
+                     gemm::ldmatrix_x4(
+                         a + (((2 * s + (lane >> 4)) ^ (lane & 7)) << 4),
+                         fr[s]);
+               });
+      PHASE(1)
+      // every column of the chunk left of N (always at ResNet-50's widths):
+      // the unrolled loops below then hold no branch
+      const bool full = n0 + cw + 128 <= m_hi;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (i >= nrt || j >= nct) continue;
-          float v[8];
-          tile_row8(st, acc[i][j], lane, v);
-          const int row = (rt0 + i) * 16 + lr;
-          const int ch = n0 + (ct0 + j) * 16 + lc;
-          const bool valid = y1_pixel(p, r0, row) >= 0;
-          uint16_t hq[8];
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = rt * 64 + 16 * warp + g + 8 * hr;   // band+halo pixel
+        if (i >= p.p1) continue;
+        const int iy = r0 - 1 + i / p.w;
+        uint16_t* dst = y1 + ((i / p.w) * p.wp + i % p.w + 1) * p.ld;
+        if (iy < 0 || iy >= p.h) continue;   // padding: y1 is zero there
+        // the same row in the partner block
+        const uint32_t far =
+            p.split > 1 ? mapa(gemm::smem_u32(dst), partner) : 0u;
+        auto body = [&](auto all) {
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const float y = slfp::epilogue_value(
-                v[k], __ldg(p.a1 + ch + k), __ldg(p.b1 + ch + k), false, 0.f,
-                true);
-            hq[k] = valid ? chain_q(y, p.recip2) : 0;
+          for (int j = 0; j < 16; ++j) {
+            const int col = n0 + cw + 8 * j + 2 * q;
+            if (!decltype(all)::value && col >= m_hi) continue;
+            const float2 a =
+                __ldg(reinterpret_cast<const float2*>(p.a1 + col));
+            const float2 b =
+                __ldg(reinterpret_cast<const float2*>(p.b1 + col));
+            const uint32_t v =
+                epi_q<kFtz>(acc[4 * j + 2 * hr], a.x, b.x, p.recip2, ptab) |
+                (epi_q<kFtz>(acc[4 * j + 2 * hr + 1], a.y, b.y, p.recip2,
+                             ptab) << 16);
+            *reinterpret_cast<uint32_t*>(dst + col) = v;
+            if (p.split > 1) st_cluster(far + 2 * col, v);
           }
-          *reinterpret_cast<uint4*>(y1p + row * p.ld + ch) = pack8(hq);
-        }
+        };
+        if (full)
+          body(std::true_type());
+        else
+          body(std::false_type());
       }
+      PHASE(2)
     }
   }
-  __syncthreads();
+  ready(0);
 
   // ---- conv2: nine shifted GEMMs over y1 -> y2 = Q3(relu(fma(., a2, b2)))
   {
-    const Tiling t = tiling(p.tm2, warp);
-    const int rt0 = t.rt0, nrt = t.nrt, ct0 = t.ct0;
-    const int stride = tile_b_bytes(t.nc);
-    const int kc = (p.m + kBK - 1) / kBK;
-    const long long tap_size = static_cast<long long>(p.m) * p.m;
-    for (int n0 = 0; n0 < p.m; n0 += t.nc) {
-      const int nct = max(0, min(2, min(t.nc, p.m - n0) / 16 - ct0));
-      zero_acc(acc);
-      pipeline<kStagesW>(
-          9 * kc,
-          [&](int s, int stage) {
-            issue_b(reinterpret_cast<bf16*>(ring + stage * stride), t,
-                    p.w2 + (s / kc) * tap_size, p.m, p.m, (s % kc) * kBK, n0,
-                    tid);
-          },
-          [&](int s, int stage) {
-            const int tap = s / kc, k0 = (s % kc) * kBK;
-            const int shift = (tap / 3) * p.wp + tap % 3;
-            mma_step(acc, y1p + shift * p.ld + k0, p.ld, rt0, nrt,
-                     reinterpret_cast<bf16*>(ring + stage * stride), t.ldb,
-                     min(2, (p.m - k0) / 16), ct0, nct);
-          });
+    const int rt = wg % p.t2, cw = (wg / p.t2) * 128;
+    const int kst = (p.m + kBK - 1) / kBK;
+    // rows past the band's read row p2 - 1 (their sums are dropped)
+    const int row = min(rt * 64 + lrow, p.p2 - 1);
+    for (int n0 = m_lo; n0 < m_hi; n0 += ch2) {
+      mainloop(acc, 9 * kst, kst, p.m, it, p, ring, full0, empty0, 0,
+               cw * 128,
+               [&](uint8_t*, int step, int sl, uint32_t(&fr)[4][4]) {
+                 const int tap = step / kst;
+                 ldm_rows(y1_u, row + (tap / 3) * p.wp + tap % 3, p.ld,
+                          (step % kst) * kBK, lane, sl, fr);
+               });
+      PHASE(3)
+      const bool full = n0 + cw + 128 <= m_hi;
 #pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = rt * 64 + 16 * warp + g + 8 * hr;   // padded pitch
+        const int r = i / p.wp, c = i % p.wp;
+        if (i >= p.p2 || c >= p.w) continue;             // padding columns
+        uint16_t* dst = y2 + (r * p.w + c) * p.ld;
+        const uint32_t far =
+            p.split > 1 ? mapa(gemm::smem_u32(dst), partner) : 0u;
+        auto body = [&](auto all) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (i >= nrt || j >= nct) continue;
-          float v[8];
-          tile_row8(st, acc[i][j], lane, v);
-          const int qrow = (rt0 + i) * 16 + lr;
-          const int r = qrow / p.wp, c = qrow % p.wp;
-          if (r >= p.rows || c >= p.w) continue;   // padding columns
-          const int ch = n0 + (ct0 + j) * 16 + lc;
-          uint16_t hq[8];
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const float y = slfp::epilogue_value(
-                v[k], __ldg(p.a2 + ch + k), __ldg(p.b2 + ch + k), false, 0.f,
-                true);
-            hq[k] = chain_q(y, p.recip3);
+          for (int j = 0; j < 16; ++j) {
+            const int col = n0 + cw + 8 * j + 2 * q;
+            if (!decltype(all)::value && col >= m_hi) continue;
+            const float2 a =
+                __ldg(reinterpret_cast<const float2*>(p.a2 + col));
+            const float2 b =
+                __ldg(reinterpret_cast<const float2*>(p.b2 + col));
+            const uint32_t v =
+                epi_q<kFtz>(acc[4 * j + 2 * hr], a.x, b.x, p.recip3, ptab) |
+                (epi_q<kFtz>(acc[4 * j + 2 * hr + 1], a.y, b.y, p.recip3,
+                             ptab) << 16);
+            *reinterpret_cast<uint32_t*>(dst + col) = v;
+            if (p.split > 1) st_cluster(far + 2 * col, v);
           }
-          *reinterpret_cast<uint4*>(y2 + (r * p.w + c) * p.ld + ch) =
-              pack8(hq);
-        }
+        };
+        if (full)
+          body(std::true_type());
+        else
+          body(std::false_type());
       }
+      PHASE(4)
     }
   }
-  __syncthreads();
+  ready(1);
 
   // ---- conv3: y3 = relu(fma(y2 @ W3, a3, b3) + identity) -> raw, q ------
   {
-    const Tiling t = tiling(p.tm3, warp);
-    const int rt0 = t.rt0, nrt = t.nrt, ct0 = t.ct0;
-    const int stride = tile_b_bytes(t.nc);
-    const int ksteps = (p.m + kBK - 1) / kBK;
-    for (int n0 = 0; n0 < p.c; n0 += t.nc) {
-      const int nct = max(0, min(2, min(t.nc, p.c - n0) / 16 - ct0));
-      zero_acc(acc);
-      pipeline<kStagesW>(
-          ksteps,
-          [&](int s, int stage) {
-            issue_b(reinterpret_cast<bf16*>(ring + stage * stride), t, p.w3,
-                    p.m, p.c, s * kBK, n0, tid);
-          },
-          [&](int s, int stage) {
-            mma_step(acc, y2 + s * kBK, p.ld, rt0, nrt,
-                     reinterpret_cast<bf16*>(ring + stage * stride), t.ldb,
-                     min(2, (p.m - s * kBK) / 16), ct0, nct);
-          });
+    const int rt = wg % p.t3, cw = (wg / p.t3) * 128;
+    const int kst = (p.m + kBK - 1) / kBK;
+    const int row = min(rt * 64 + lrow, p.p3 - 1);
+    long long pix[2];
 #pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
+    for (int hr = 0; hr < 2; ++hr) {
+      const int i = rt * 64 + 16 * warp + g + 8 * hr;
+      pix[hr] = i < p.p3 && i / p.w < r_eff
+                    ? (static_cast<long long>(img) * p.h + r0 + i / p.w) *
+                              p.w + i % p.w
+                    : -1;
+    }
+    for (int n0 = c_lo; n0 < c_hi; n0 += ch3) {
+      // this chunk's identity, loaded ahead of its mainloop
+      uint32_t id[16][2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (i >= nrt || j >= nct) continue;
-          float v[8];
-          tile_row8(st, acc[i][j], lane, v);
-          const int prow = (rt0 + i) * 16 + lr;
-          const int r = prow / p.w;
-          if (r >= r_eff) continue;
-          const long long pix = img * hw +
-              static_cast<long long>(r0 + r) * p.w + prow % p.w;
-          const int ch = n0 + (ct0 + j) * 16 + lc;
-          const long long off = pix * p.c + ch;
-          float id[8];
-          unpack8(__ldg(reinterpret_cast<const uint4*>(p.idn + off)), id);
-          uint16_t hr[8], hq[8];
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + cw + 8 * j + 2 * q;
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const float y = slfp::epilogue_value(
-                v[k], __ldg(p.a3 + ch + k), __ldg(p.b3 + ch + k), true, id[k],
-                true);
-            hr[k] = slfp::bf16_bits(y);
-            hq[k] = chain_q(y, p.recip_next);
-          }
-          if (p.raw != nullptr) {
-            *reinterpret_cast<uint4*>(p.raw + off) = pack8(hr);
-          }
-          if (p.q != nullptr) {
-            *reinterpret_cast<uint4*>(p.q + off) = pack8(hq);
+        for (int hr = 0; hr < 2; ++hr)
+          id[j][hr] = pix[hr] >= 0 && col < p.c
+                          ? __ldg(reinterpret_cast<const uint32_t*>(
+                                p.idn + pix[hr] * p.c + col))
+                          : 0u;
+      }
+      mainloop(acc, kst, kst, p.m, it, p, ring, full0, empty0, 0, cw * 128,
+               [&](uint8_t*, int step, int sl, uint32_t(&fr)[4][4]) {
+                 ldm_rows(y2_u, row, p.ld, step * kBK, lane, sl, fr);
+               });
+      PHASE(5)
+      const bool full = n0 + cw + 128 <= c_hi;
+      // what to emit and whether every column counts, as constants of the
+      // unrolled loop
+      auto body = [&](auto all, auto er, auto eq) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          if (pix[hr] < 0) continue;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = n0 + cw + 8 * j + 2 * q;
+            if (!decltype(all)::value && col >= c_hi) continue;
+            const float2 a =
+                __ldg(reinterpret_cast<const float2*>(p.a3 + col));
+            const float2 b =
+                __ldg(reinterpret_cast<const float2*>(p.b3 + col));
+            const float r0v = slfp::bf16_to_float(id[j][hr] & 0xFFFF);
+            const float r1v = slfp::bf16_to_float(id[j][hr] >> 16);
+            const float v0 =
+                epi_value<kFtz>(acc[4 * j + 2 * hr], a.x, b.x, &r0v);
+            const float v1 =
+                epi_value<kFtz>(acc[4 * j + 2 * hr + 1], a.y, b.y, &r1v);
+            const long long off = pix[hr] * p.c + col;
+            if (decltype(er)::value) {
+              *reinterpret_cast<uint32_t*>(p.raw + off) =
+                  slfp::bf16_bits(v0) |
+                  (static_cast<uint32_t>(slfp::bf16_bits(v1)) << 16);
+            }
+            if (decltype(eq)::value) {
+              *reinterpret_cast<uint32_t*>(p.q + off) =
+                  chain_q<kFtz>(v0, p.recip_next, ptab) |
+                  (chain_q<kFtz>(v1, p.recip_next, ptab) << 16);
+            }
           }
         }
+      };
+      using T = std::true_type;
+      using F = std::false_type;
+      if (p.raw != nullptr && p.q != nullptr) {
+        if (full) body(T(), T(), T()); else body(F(), T(), T());
+      } else if (p.raw != nullptr) {
+        if (full) body(T(), T(), F()); else body(F(), T(), F());
+      } else {
+        if (full) body(T(), F(), T()); else body(F(), F(), T());
       }
+      PHASE(6)
     }
   }
 }
@@ -527,20 +636,27 @@ extern "C" int slfp_bottleneck_chain(
     const void* xq, const void* identity, const void* w1, const void* w2,
     const void* w3, const void* a1, const void* b1, const void* a2,
     const void* b2, const void* a3, const void* b3, void* raw, void* q,
-    int n, int h, int w, int c, int m, int rows, float recip2, float recip3,
-    float recip_next, void* stream) {
+    int n, int h, int w, int c, int m, int rows, int split, float recip2,
+    float recip3, float recip_next, int ftz, void* stream) {
   const Geometry g = chain_geometry(w, m, rows);
   if (n <= 0 || h <= 0 || w <= 0 || rows <= 0 || c % 16 || m % 16 ||
-      g.tm1 > kMaxRowTiles || g.smem > 232448 ||
+      (split != 1 && split != 2) || c % (16 * split) || m % (16 * split) ||
+      g.t1 > kMaxTiles || g.t2 > kMaxTiles || g.t3 > kMaxTiles ||
+      g.smem > kSmemLimit ||
       (raw == nullptr && q == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  CUtensorMap tx, tw1, tw2, tw3;
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint64_t pixels = static_cast<uint64_t>(n) * h * w;
+  if (!gemm::encode_2d(&tx, xq, bf, c, pixels, 2ULL * c, 64, 64, true) ||
+      !gemm::encode_2d(&tw1, w1, bf, m, c, 2ULL * m, 64, 64, true) ||
+      !gemm::encode_2d(&tw2, w2, bf, m, 9ULL * m, 2ULL * m, 64, 64, true) ||
+      !gemm::encode_2d(&tw3, w3, bf, c, m, 2ULL * c, 64, 64, true)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p;
-  p.x = static_cast<const uint16_t*>(xq);
   p.idn = static_cast<const uint16_t*>(identity);
-  p.w1 = static_cast<const uint16_t*>(w1);
-  p.w2 = static_cast<const uint16_t*>(w2);
-  p.w3 = static_cast<const uint16_t*>(w3);
   p.a1 = static_cast<const float*>(a1);
   p.b1 = static_cast<const float*>(b1);
   p.a2 = static_cast<const float*>(a2);
@@ -549,6 +665,7 @@ extern "C" int slfp_bottleneck_chain(
   p.b3 = static_cast<const float*>(b3);
   p.raw = static_cast<uint16_t*>(raw);
   p.q = static_cast<uint16_t*>(q);
+  p.pixels = static_cast<long long>(pixels);
   p.h = h;
   p.w = w;
   p.c = c;
@@ -558,20 +675,37 @@ extern "C" int slfp_bottleneck_chain(
   p.recip3 = recip3;
   p.recip_next = recip_next;
   p.wp = g.wp;
-  p.tm1 = g.tm1;
-  p.tm2 = g.tm2;
-  p.tm3 = g.tm3;
-  p.y1r = g.y1r;
+  p.p1 = g.p1;
+  p.p2 = g.p2;
+  p.p3 = g.p3;
+  p.t1 = g.t1;
+  p.t2 = g.t2;
+  p.t3 = g.t3;
   p.ld = g.ld;
-  p.tile_a = g.tile_a;
-  p.ring = g.ring;
+  p.y1r = g.y1r;
+  p.stage_bytes = g.stage_bytes;
+  p.stages = g.stages;
+  p.split = split;
+  auto kernel = ftz ? chain_kernel<true> : chain_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(g.smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>((h + rows - 1) / rows),
-                  static_cast<unsigned>(n));
-  chain_kernel<<<grid, kThreads, g.smem, static_cast<cudaStream_t>(stream)>>>(
-      p);
+  // a pair of blocks splitting a band's columns runs as a cluster
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((h + rows - 1) / rows),
+                     static_cast<unsigned>(n), static_cast<unsigned>(split));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(g.smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = static_cast<unsigned>(split);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, tx, tw1, tw2, tw3, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

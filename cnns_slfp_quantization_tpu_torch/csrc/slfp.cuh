@@ -1,6 +1,6 @@
-// Device math shared by the three hand kernels (K1 quantize.cu, K2 qmm.cu,
-// K3 epilogue.cu): the SLFP<3,4> / SFP<3,3> activation quantizer in the
-// float32 bit domain and the fused affine epilogue.
+// Device math shared by the hand kernels (K1 quantize.cu, K2 qmm.cu, K3
+// epilogue.cu, and K4-K6): the SLFP<3,4> / SFP<3,3> activation quantizer in
+// the float32 bit domain and the fused affine epilogue.
 //
 // Bit-equal to the plain PyTorch versions (ops/sfp.py::act_bf16_bits and
 // slfp34_act_bits, kernels/epilogue.py::affine_f32) and through them to the
@@ -51,10 +51,9 @@ __device__ __forceinline__ float ftz(float v) {
   return (__float_as_int(v) & 0x7FFFFFFF) < 0x00800000 ? v * 0.f : v;
 }
 
-// quantize_act(x * recip, qbit) as bf16 bits (ops/sfp.py::act_bf16_bits)
-__device__ __forceinline__ uint16_t act_bf16_bits(float x, float recip,
-                                                  int qbit, bool nonneg) {
-  const float xs = ftz(__fmul_rn(ftz(x), recip));
+// the quantize of an already scaled and flushed xs = ftz(x * recip)
+__device__ __forceinline__ uint16_t act_bf16_bits_scaled(float xs, int qbit,
+                                                         bool nonneg) {
   const int32_t bits = __float_as_int(xs);
   const int32_t a = nonneg ? bits : (bits & 0x7FFFFFFF);
   int32_t out;
@@ -74,6 +73,12 @@ __device__ __forceinline__ uint16_t act_bf16_bits(float x, float recip,
   if (a < kI32Lo) out = (a == 0) ? 0 : kPz16;
   if (!nonneg) out |= (bits >> 16) & 0x8000;
   return static_cast<uint16_t>(out);
+}
+
+// quantize_act(x * recip, qbit) as bf16 bits (ops/sfp.py::act_bf16_bits)
+__device__ __forceinline__ uint16_t act_bf16_bits(float x, float recip,
+                                                  int qbit, bool nonneg) {
+  return act_bf16_bits_scaled(ftz(__fmul_rn(ftz(x), recip)), qbit, nonneg);
 }
 
 // SLFP<3,4> activation quantize, float32 result (slfp34_act_bits)

@@ -20,6 +20,7 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -52,11 +53,15 @@ SIGNATURES = {
                               _F, _I) + (_I,) * 5 + (_P, _P),
     },
     "depthwise": {
+        # ..., then the route (ftz) and the plan (cg, tw, rows), the stream
         "slfp_dw3x3": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _F, _I, _I, _P),
+                       _F, _I, _I) + (_I,) * 4 + (_P,),
     },
     "chain": {
-        "slfp_bottleneck_chain": (_P,) * 13 + (_I,) * 6 + (_F,) * 3 + (_P,),
+        # ..., the plan (rows, split), the recips, the route (ftz), the
+        # stream
+        "slfp_bottleneck_chain": (_P,) * 13 + (_I,) * 7 + (_F,) * 3
+        + (_I, _P),
     },
 }
 
@@ -159,3 +164,21 @@ def check_cuda(*tensors) -> None:
     for t in tensors:
         if t is not None and not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
+
+
+_FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def no_subnormal(t: torch.Tensor) -> bool:
+    """No element of ``t`` is subnormal: what lets a kernel fold its
+    flushes into the FTZ forms of its float instructions.  Reads the tensor
+    as it is now (a device sync on the card); callers decide once where
+    they lay out their weights."""
+    a = t.detach().abs()
+    return not bool(((a > 0) & (a < _FLT_MIN)).any())
+
+
+def normal_scalar(v: float) -> bool:
+    """float32(v) is zero or normal."""
+    a = abs(float(np.float32(v)))
+    return a == 0 or a >= _FLT_MIN

@@ -15,14 +15,18 @@ and ``w3 [M, C]`` and float32 per-channel affines, it computes
 where ``Q(v, r) = bf16(slfp34_act_bits(v * f32(r)))`` is the chain's own
 quantize of the float32 value (JAX ``chain.py:42-44``), not the bf16-bits
 form K2 and K3 inline; ReLU gives +0.0; subnormals are flushed.  The kernel
-keeps y1 and y2 in shared memory.  It takes a band of output rows per block
-(``_plan``): stages 1, 2 and 3 of ResNet-50 fit, stage 0 (56x56) does not,
-and the wrapper says so.  The plain version takes any shape.
+keeps y1 and y2 in shared memory.  It takes a band of output rows per block,
+or per pair of blocks that split its columns (``_plan``), whose GEMMs have at
+most two 64-row tiles each: stages 1, 2 and 3 of ResNet-50 fit, stage 0
+(56x56) does not, and the wrapper says so.  The plain version takes any
+shape.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,11 +38,12 @@ from cnns_slfp_quantization_tpu_torch.kernels.epilogue import (
 )
 from cnns_slfp_quantization_tpu_torch.ops import sfp
 
-# limits of csrc/chain.cu: 16-row wmma tiles per GEMM (5 per warp) and the
-# shared memory of one block
-MAX_ROW_TILES = 10
+# limits of csrc/chain.cu: 64-row tiles per GEMM (one per consumer
+# warpgroup), ring stages, and the shared memory of one block
+MAX_ROW_TILES = 2
 SMEM_LIMIT = 232448
-_BK, _NC, _WARPS = 32, 128, 8
+_MAX_STAGES = 4
+_X_TILE = 64 * 128          # bytes of a 64-row x tile (and of a weight box)
 # blocks wanted in flight: about one per SM of the H100 (132)
 _TARGET_BLOCKS = 128
 
@@ -86,47 +91,72 @@ def bottleneck_chain_plain(xq, identity, w1, w2, w3, a1, b1, a2, b2, a3, b3,
     return raw, q
 
 
-def _smem_bytes(w: int, m: int, rows: int):
-    """(row tiles of conv1, shared memory bytes) of one block for a band of
-    ``rows`` output rows: csrc/chain.cu::chain_geometry."""
+def _geometry(w: int, m: int, rows: int):
+    """(row tiles of conv1, conv2, conv3; ring stages; shared memory bytes)
+    of one block for a band of ``rows`` output rows:
+    csrc/chain.cu::chain_geometry."""
     wp = w + 2
-    tm1 = -(-(rows + 2) * wp // 16)
-    tm2 = -(-rows * wp // 16)
-    tm3 = -(-rows * w // 16)
-    y1r = -(-max(tm1 * 16, tm2 * 16 + 2 * wp + 2) // 16) * 16
-    ld = m + 16
+    tiles = tuple(-(-p // 64) for p in ((rows + 2) * w, rows * wp, rows * w))
 
-    def tile_b(tm):   # a weight tile of the GEMM's chunk width
-        return 2 * _BK * ((2 * _NC if tm <= MAX_ROW_TILES // 2 else _NC) + 16)
+    def chunk(t):   # output columns a chunk: 256 split over two warpgroups
+        return 256 if t == 1 else 128
 
-    ring = max(3 * (2 * tm1 * 16 * (_BK + 16) + tile_b(tm1)),
-               4 * tile_b(tm2), 4 * tile_b(tm3))
-    smem = 2 * y1r * ld + 2 * tm3 * 16 * ld + ring + 4 * _WARPS * 256
-    return tm1, smem
+    stage = max(tiles[0] * _X_TILE + 128 * chunk(tiles[0]),
+                128 * chunk(tiles[1]), 128 * chunk(tiles[2]))
+    fixed = 1024 + 2 * (m + 8) * ((rows + 2) * wp + 2 + rows * w) \
+        + 16 * _MAX_STAGES + 16
+    stages = min(_MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+    return tiles, stages, fixed + max(stages, 2) * stage
 
 
-def _plan(n: int, h: int, w: int, c: int, m: int) -> int:
-    """Output rows per block: the fewest bands that fit, then more bands
-    until about 128 blocks are in flight.  Raises ValueError for shapes the
-    kernel does not take."""
+def _smem_bytes(w: int, m: int, rows: int):
+    """(the most row tiles of one GEMM, shared memory bytes) of one block
+    for a band of ``rows`` output rows."""
+    tiles, _, smem = _geometry(w, m, rows)
+    return max(tiles), smem
+
+
+class Plan(NamedTuple):
+    """Output rows per band, and blocks per band (``split`` 2: a cluster
+    of two, each computing half of every GEMM's columns)."""
+    rows: int
+    split: int
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(n: int, h: int, w: int, c: int, m: int) -> Plan:
+    """The fewest bands that fit; then, while fewer than about 128 blocks
+    are in flight, two blocks per band (where M and C halve into multiples
+    of 16), then more bands.  Raises ValueError for shapes the kernel does
+    not take."""
     if c % 16 or m % 16:
         raise ValueError(f"bottleneck_chain: C={c} and M={m} must be "
                          f"multiples of 16 on the card")
 
     def fits(rows):
-        tm1, smem = _smem_bytes(w, m, rows)
-        return tm1 <= MAX_ROW_TILES and smem <= SMEM_LIMIT
+        tiles, stages, smem = _geometry(w, m, rows)
+        return (max(tiles) <= MAX_ROW_TILES and stages >= 2
+                and smem <= SMEM_LIMIT)
 
     if not fits(1):
-        tm1, smem = _smem_bytes(w, m, 1)
+        tiles, stages, _ = _geometry(w, m, 1)
         raise ValueError(
             f"bottleneck_chain: a {h}x{w} image with M={m} does not fit the "
-            f"kernel even in one-row bands ({tm1} row tiles of 16 for conv1, "
-            f"limit {MAX_ROW_TILES}; {smem} of {SMEM_LIMIT} bytes of shared "
-            f"memory)")
+            f"kernel even in one-row bands (row tiles of 64 per GEMM "
+            f"{tiles}, limit {MAX_ROW_TILES}; {stages} ring stages in "
+            f"{SMEM_LIMIT} bytes of shared memory, at least 2)")
     bands = next(b for b in range(1, h + 1) if fits(math.ceil(h / b)))
-    bands = max(bands, min(h, math.ceil(_TARGET_BLOCKS / n)))
-    return math.ceil(h / bands)
+    split = 2 if (n * bands < _TARGET_BLOCKS and c % 32 == 0
+                  and m % 32 == 0) else 1
+    bands = max(bands, min(h, math.ceil(_TARGET_BLOCKS / (n * split))))
+    return Plan(math.ceil(h / bands), split)
+
+
+def ftz_route(params, recips) -> bool:
+    """Whether K6 may fold its epilogues' flushes into FTZ instructions:
+    exact when no affine parameter or reciprocal is subnormal."""
+    return (all(_build.normal_scalar(r) for r in recips)
+            and all(_build.no_subnormal(t) for t in params))
 
 
 def bottleneck_chain(
@@ -147,12 +177,15 @@ def bottleneck_chain(
     recip_next: float = 1.0,
     emit_raw: bool = True,
     emit_q: bool = True,
+    ftz: Optional[bool] = None,
 ):
     """(raw, q) of a stride-1 bottleneck; either is None when not asked
     for.  xq, identity ``[N, H, W, C]`` bf16; w1 ``[C, M]``, w2 ``[3, 3, M,
     M]``, w3 ``[M, C]`` bf16 values; a*/b* float32 per channel (BN folded
     with Ka*Kw); recip2/recip3/recip_next: 1/Ka of conv2's, conv3's and the
-    next layer's quantize."""
+    next layer's quantize; ``ftz``: the route, :func:`ftz_route` of the
+    affines and reciprocals as the caller found it, or None to check them
+    now (a device sync)."""
     if not (emit_raw or emit_q):
         raise ValueError("bottleneck_chain: nothing to emit")
     if xq.dim() != 4:
@@ -180,17 +213,22 @@ def bottleneck_chain(
     _build.check_cuda(*args)
     if not _build.aligned16(*args):
         raise ValueError("bottleneck_chain: operands must be 16-byte aligned")
-    rows = _plan(n, h, w, c, m)
+    plan = _plan(n, h, w, c, m)
+    if ftz is None:
+        ftz = ftz_route((a1, b1, a2, b2, a3, b3),
+                        (recip2, recip3, recip_next))
     raw = torch.empty_like(xq) if emit_raw else None
     q = torch.empty_like(xq) if emit_q else None
     _build.launch(
         "chain", "slfp_bottleneck_chain", *(t.data_ptr() for t in args),
         None if raw is None else raw.data_ptr(),
-        None if q is None else q.data_ptr(), n, h, w, c, m, rows,
+        None if q is None else q.data_ptr(), n, h, w, c, m, *plan,
         float(np.float32(recip2)), float(np.float32(recip3)),
-        float(np.float32(recip_next)), _build.stream_of(xq))
+        float(np.float32(recip_next)), int(ftz), _build.stream_of(xq))
     bottleneck_chain.launches += 1
+    bottleneck_chain.ftz_launches += int(ftz)
     return raw, q
 
 
 bottleneck_chain.launches = 0
+bottleneck_chain.ftz_launches = 0   # of the launches, those on the FTZ route

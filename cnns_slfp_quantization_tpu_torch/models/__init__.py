@@ -13,6 +13,14 @@ import torch
 
 from cnns_slfp_quantization_tpu_torch import calib
 
+_MOBILENETS = ("mobilenet", "cifar/mobilenet", "mobilenet_swish",
+               "cifar/mobilenet_swish", "mobilenetv1", "imgnet/mobilenetv1")
+_RESNETS = ("resnet", "resnet50", "imgnet/resnet")
+_SQUEEZENETS = ("squeezenet", "imgnet/squeezenet")
+_ALEXNETS = ("alexnet", "imgnet/alexnet")
+# every name create_model accepts
+NAMES = _MOBILENETS + _RESNETS + _SQUEEZENETS + _ALEXNETS
+
 
 def create_model(name: str, qbit: int = 32, *,
                  scales: Optional[calib.ScaleSet] = None,
@@ -28,8 +36,7 @@ def create_model(name: str, qbit: int = 32, *,
     common = dict(qbit=qbit, frozen_weights=frozen_weights,
                   compute_dtype=compute_dtype, use_pallas=use_pallas,
                   generator=generator, num_classes=num_classes or 1000)
-    if name in ("mobilenet", "cifar/mobilenet", "mobilenet_swish",
-                "cifar/mobilenet_swish", "mobilenetv1", "imgnet/mobilenetv1"):
+    if name in _MOBILENETS:
         from cnns_slfp_quantization_tpu_torch.models import mobilenetv1
 
         kind = name.split("/")[-1]
@@ -44,17 +51,17 @@ def create_model(name: str, qbit: int = 32, *,
                 swish_tail=4, layerout_quant=True, **common)
         return mobilenetv1.MobileNetV1(
             scales=scales or calib.load_scales("mobilenetv1_cifar"), **common)
-    if name in ("resnet", "resnet50", "imgnet/resnet"):
+    if name in _RESNETS:
         from cnns_slfp_quantization_tpu_torch.models import resnet50
 
         return resnet50.ResNet50(
             scales=scales or calib.load_scales("resnet50_imgnet"), **common)
-    if name in ("squeezenet", "imgnet/squeezenet"):
+    if name in _SQUEEZENETS:
         from cnns_slfp_quantization_tpu_torch.models import squeezenet
 
         return squeezenet.SqueezeNet(
             scales=scales or calib.load_scales("squeezenet_imgnet"), **common)
-    if name in ("alexnet", "imgnet/alexnet"):
+    if name in _ALEXNETS:
         from cnns_slfp_quantization_tpu_torch.models import alexnet
 
         return alexnet.AlexNet(

@@ -70,6 +70,7 @@ class FusedWeights:
     stem_s2d: ConvKxK      # the same, a 2x2/s1 conv on a space-to-depth input
     dw: list               # per block: ConvKxK (grouped, OIHW) ...
     dw_taps: list          # ... and its taps [3, 3, C] float32, for K5
+    dw_ftz: list           # ... and K5's route for them (k5.ftz_route)
     pw: list               # per block: (w [Cin, Cout] f32, scale, shift)
     fc_w: torch.Tensor     # [1024, classes] float32 (bf16 values if quantized)
     fc_b: torch.Tensor     # bias, or float32(b) / float32(kaw) if quantized
@@ -89,6 +90,7 @@ def prepare(model: MobileNetV1, *, device="cuda") -> FusedWeights:
             raise ValueError("fused executor needs frozen weights "
                              "(ops.freeze.prequantize or pack)")
     ka, kw = model.scales.ka, model.scales.kw
+    recips = [sfp.recip_of(a) for a in ka]
 
     def vec(a):
         return torch.from_numpy(a).to(device)
@@ -105,12 +107,14 @@ def prepare(model: MobileNetV1, *, device="cuda") -> FusedWeights:
 
     stem = conv_kxk(0)
     stem_s2d = conv_kxk(0, w=_s2d_weight(stem.w.cpu()), stride=1, pad=0)
-    dw, dw_taps, pw = [], [], []
+    dw, dw_taps, dw_ftz, pw = [], [], [], []
     for b in range(len(DW_CONFIG)):
         c = conv_kxk(1 + 2 * b)
         dw.append(c)
         # OIHW [C, 1, 3, 3] -> [3, 3, C]
         dw_taps.append(c.w[:, 0].permute(1, 2, 0).contiguous())
+        dw_ftz.append(k5.ftz_route(dw_taps[-1], c.scale, c.shift,
+                                   recips[2 + 2 * b]))
         p = conv_kxk(2 + 2 * b)
         pw.append((p.w[:, :, 0, 0].t().contiguous(), p.scale, p.shift))
     quant_fc = isinstance(model.fc, QuantDense)
@@ -122,10 +126,11 @@ def prepare(model: MobileNetV1, *, device="cuda") -> FusedWeights:
     else:
         fc_w, kaw_fc = model.fc.weight.detach().float(), None
     return FusedWeights(
-        stem=stem, stem_s2d=stem_s2d, dw=dw, dw_taps=dw_taps, pw=pw,
+        stem=stem, stem_s2d=stem_s2d, dw=dw, dw_taps=dw_taps,
+        dw_ftz=dw_ftz, pw=pw,
         fc_w=fc_w.t().contiguous().to(device),
         fc_b=vec(fc_b.astype(np.float32)), kaw_fc=kaw_fc,
-        quant_classifier=quant_fc, recips=[sfp.recip_of(a) for a in ka])
+        quant_classifier=quant_fc, recips=recips)
 
 
 def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
@@ -168,7 +173,8 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, dw_kernel: bool,
         d = fw.dw[b]
         if stride == 1 and dw_kernel:
             y = k5.dw3x3(y, fw.dw_taps[b], scale=d.scale, shift=d.shift,
-                         relu=True, quant_out_recip=rc[i_pw])
+                         relu=True, quant_out_recip=rc[i_pw],
+                         ftz=fw.dw_ftz[b])
         else:
             _, y = k3.bn_epilogue(_conv_f32(y, d), d.scale, d.shift,
                                   relu=True, emit_raw=False,

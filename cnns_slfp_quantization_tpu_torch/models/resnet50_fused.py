@@ -22,11 +22,14 @@ JAX ``"pallas"``) and a plain f32 matmul followed by K3 (``"torch"``, JAX
 ``"xla"``).  With ``conv3="torch"`` the mid-stage block outputs use K3's
 dual form (raw + quantized in one pass), which JAX proves bit-equal to its
 default placement.  ``policy["chain"]``, a set of stage indices (JAX's
-``chain``, empty by default), runs every stride-1 bottleneck of those
-stages (blocks 1 and on) as one launch of K6, whose conv1 and conv2
-outputs never leave the card's shared memory; on the card K6 takes stages
-1-3 and raises for stage 0.  Whether a kernel or its plain version runs is
-decided by the tensors' device alone.
+``chain``), runs every stride-1 bottleneck of those stages (blocks 1 and
+on) as one launch of K6, whose conv1 and conv2 outputs never leave the
+card's shared memory; on the card K6 takes stages 1-3 and raises for stage
+0.  The port's default is ``{2, 3}``, where JAX's is empty: each of the
+two stages served more images/s through K6 than without it at batch 64
+and 256, timed in turns on the H100 (``utils/bench_chain.py --serve``,
+PERF.md); ``frozenset()`` is JAX's placement.  Whether a kernel or its
+plain version runs is decided by the tensors' device alone.
 
 The spatial convolutions and the plain matmuls take float32 tensors that
 hold bf16 values: every product is exact and the sums are float32, which is
@@ -55,7 +58,8 @@ from cnns_slfp_quantization_tpu_torch.models.resnet50 import (
 from cnns_slfp_quantization_tpu_torch.ops import sfp
 from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
 
-DEFAULT_POLICY = {"conv1": "kernel", "conv3": "kernel", "chain": frozenset()}
+DEFAULT_POLICY = {"conv1": "kernel", "conv3": "kernel",
+                  "chain": frozenset({2, 3})}
 
 
 def bn_fold(bn: torch.nn.BatchNorm2d, kaw: float):
@@ -98,7 +102,8 @@ class FusedWeights:
     kaw53: torch.Tensor           # float32 0-d
     recips: list           # recips[sid] = 1/Ka as JAX computes it
     # prefix -> K6's weights (w1 [C, M], w2 [3, 3, M, M], w3 [M, C], bf16
-    # values), laid out at the first forward that runs the block on K6
+    # values) and route, laid out at the first forward that runs the block
+    # on K6
     chain: dict = dataclasses.field(default_factory=dict)
 
 
@@ -107,20 +112,25 @@ class ChainWeights:
     w1: torch.Tensor
     w2: torch.Tensor
     w3: torch.Tensor
+    ftz: bool     # K6's route for the block's affines and reciprocals
 
 
-def _chain_weights(fw: FusedWeights, pre: str) -> ChainWeights:
+def _chain_weights(fw: FusedWeights, pre: str, recips) -> ChainWeights:
     """Block ``pre``'s weights in K6's layout, built once: uint8 codes are
     decoded (the values JAX's ``_wv`` decodes in-graph), the conv2 kernel
-    goes from cuDNN's OIHW to HWIO."""
+    goes from cuDNN's OIHW to HWIO; the route is decided for its affines
+    and ``recips`` (recip2, recip3, recip_next)."""
     cw = fw.chain.get(pre)
     if cw is None:
         blk = fw.blocks[pre]
+        affines = [getattr(blk[c], f) for c in ("conv1", "conv2", "conv3")
+                   for f in ("scale", "shift")]
         cw = ChainWeights(
             w1=_bf16_values(blk["conv1"].w).contiguous(),
             w2=blk["conv2"].w.permute(2, 3, 1, 0).to(
                 torch.bfloat16).contiguous(),
-            w3=_bf16_values(blk["conv3"].w).contiguous())
+            w3=_bf16_values(blk["conv3"].w).contiguous(),
+            ftz=k6.ftz_route(affines, recips))
         fw.chain[pre] = cw
     return cw
 
@@ -308,14 +318,15 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict):
             # the whole bottleneck as one K6 launch (JAX :262-296)
             xq_in = (c1_in if c1_recip is None
                      else k2.quantize_act_pass(xr_raw, c1_recip))
-            cw = _chain_weights(fw, pre)
+            recips = (rc[sid + 2], rc[sid + 3],
+                      rc[qn] if qn is not None else 1.0)
+            cw = _chain_weights(fw, pre, recips)
             raw, q = k6.bottleneck_chain(
                 xq_in, identity, cw.w1, cw.w2, cw.w3, c1.scale, c1.shift,
-                c2.scale, c2.shift, c3.scale, c3.shift, recip2=rc[sid + 2],
-                recip3=rc[sid + 3],
-                recip_next=rc[qn] if qn is not None else 1.0,
+                c2.scale, c2.shift, c3.scale, c3.shift, recip2=recips[0],
+                recip3=recips[1], recip_next=recips[2],
                 emit_raw=not (last and qn is not None),
-                emit_q=qn is not None)
+                emit_q=qn is not None, ftz=cw.ftz)
             if last:
                 xr_raw, xr_q = (q if qn is not None else raw), q
             else:

@@ -41,6 +41,14 @@ FUSABLE = {
 }
 
 
+def default_image_size(net: str) -> int:
+    """32 for a bare CIFAR name, 224 for any other: JAX's rule
+    (``serve.py:85-86``) on the name as given, so ``"cifar/mobilenet"``
+    gets 224."""
+    return (models.INPUT_SIZE["cifar"] if net in models.MODEL_NAMES["cifar"]
+            else models.INPUT_SIZE["imgnet"])
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -71,9 +79,10 @@ class InferenceEngine:
         float32 numerics (``compute_dtype=None``); ``fused=True`` on another
         net or qbit raises.  ``policy`` goes to the fused executor (keys
         ``conv1``/``conv3`` and ``chain`` for ResNet-50, ``dw`` for
-        MobileNetV1); ``policy={"chain": {2, 3}}`` serves ResNet-50's
-        stride-1 bottlenecks of stages 2 and 3 through K6, one launch each.
-        ``image_size`` defaults to 32 for the CIFAR nets, 224 otherwise."""
+        MobileNetV1); by default ResNet-50's stride-1 bottlenecks of stages
+        2 and 3 run through K6, one launch each, and ``policy={"chain":
+        frozenset()}`` runs them as JAX's default placement does.
+        ``image_size`` defaults to :func:`default_image_size`."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -97,10 +106,7 @@ class InferenceEngine:
         self.fused = fused
         self.qbit = qbit
         self.batch_size = batch_size
-        self.image_size = image_size or (
-            models.INPUT_SIZE["cifar"]
-            if net.split("/")[-1] in models.MODEL_NAMES["cifar"]
-            else models.INPUT_SIZE["imgnet"])
+        self.image_size = image_size or default_image_size(net)
         self.policy = policy
         if generator is None:
             generator = torch.Generator().manual_seed(seed)

@@ -12,8 +12,9 @@ holds both kernels to (the only correctness check on the card).
 
 Run as a script, it times every served shape through the wrappers: the
 device time of the kernels alone from torch.profiler (median of 3 runs of
-5 calls), and CUDA events around 20 runs of 5 back-to-back calls, which
-for kernels of a few microseconds time the host.  K4 gets uint8 weights,
+5 calls that recorded every kernel, ``profiling.kernel_ms``), and CUDA
+events around 20 runs of 5 back-to-back calls, which for kernels of a few
+microseconds time the host.  K4 gets uint8 weights,
 as the paths serve them.  With ``--against ROOT`` the same calls also go
 through the wrappers of another checkout (for example the parent commit,
 unpacked with ``git archive``), each version in its own process, in turns
@@ -31,8 +32,13 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
+
+if __package__:
+    from cnns_slfp_quantization_tpu_torch.utils import profiling, turns
+else:   # a worker, run as a file: this checkout's timing, another's wrappers
+    import profiling
+    import turns
 
 B = 64
 
@@ -204,30 +210,6 @@ def same_bits(a, b):
 
 # ------------------------------------------------------------------- times
 
-def kernel_ms(call, reps=5, runs=3):
-    """Device time per call of the kernels ``call`` launches, from
-    torch.profiler (the host's share excluded): the median of ``runs``
-    profiled runs of ``reps`` calls."""
-    import statistics
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    call()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(runs):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                call()
-            torch.cuda.synchronize()
-        out.append(sum(getattr(e, "self_device_time_total", 0)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA) / 1e3 / reps)
-    return statistics.median(out)
-
-
 def site_calls(dev):
     """(label, plan arguments (M, K, N, residual), call) of every served
     shape, ``call`` launching K2 or K4 on fresh inputs from seed 0 through
@@ -289,9 +271,7 @@ def site_calls(dev):
 def time_sites(dev):
     """{label: (ms per launch between CUDA events, device ms per launch
     from the profiler)} at every served shape."""
-    from cnns_slfp_quantization_tpu_torch.utils.profiling import median_ms
-
-    return {label: (median_ms(call), kernel_ms(call))
+    return {label: (profiling.median_ms(call), profiling.kernel_ms(call))
             for label, _, call in site_calls(dev)}
 
 
@@ -315,7 +295,7 @@ def time_plans(dev):
                         _gemm_plan.plan = lambda *_, p=p: p
                         mark = "*" if p == chosen else ""
                         times.append(f"{bm}x{bn}x{st}{mark} "
-                                     f"{kernel_ms(call):.4f}")
+                                     f"{profiling.kernel_ms(call):.4f}")
             _gemm_plan.plan = plan
             print(f"  {label}: " + ", ".join(times), flush=True)
     finally:
@@ -330,13 +310,13 @@ def serve_ips(dev, batch: int = B):
     import torch
 
     from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
-    from cnns_slfp_quantization_tpu_torch.utils.profiling import throughput
 
     eng = InferenceEngine("resnet", qbit=8, batch_size=batch,
                           image_size=224, seed=0)
     x = torch.randn(batch, 224, 224, 3, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(0))
-    return statistics.median(throughput(lambda: eng.forward(x), batch)
+    return statistics.median(profiling.throughput(lambda: eng.forward(x),
+                                                  batch)
                              for _ in range(3))
 
 
@@ -361,32 +341,16 @@ def main() -> int:
     if a.worker:
         _worker(a.worker)
         return 0
-    import torch
-
-    if not torch.cuda.is_available():
-        print("bench_gemm: no CUDA device", file=sys.stderr)
+    card = turns.card()
+    if card is None:
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(f"card: {smi.stdout.strip()}", flush=True)
+    print(f"card: {card}", flush=True)
     if a.plans:
+        import torch
+
         time_plans(torch.device("cuda"))
         return 0
-    this = pathlib.Path(__file__).resolve().parents[2]
-    roots = {"this": this}
-    if a.against:
-        roots["other"] = a.against.resolve()
-    order = ["this", "other", "other", "this"] if a.against else ["this"]
-    runs = {name: [] for name in roots}
-    for name in order:
-        res = subprocess.run([sys.executable, str(pathlib.Path(__file__)),
-                              "--worker", str(roots[name])],
-                             capture_output=True, text=True, timeout=1200)
-        if res.returncode:
-            print(res.stdout, res.stderr, file=sys.stderr)
-            return 1
-        runs[name].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    runs = turns.across_checkouts(__file__, a.against)
     per_fwd = {}
     counts = {f"K2 {site} {m}x{k}x{n}": c
               for m, k, n, site, c in k2_sites()}
@@ -411,8 +375,8 @@ def main() -> int:
               f"{' / '.join(f'{ms:.4f}' for ms, _ in tot)} ms, kernels "
               f"{' / '.join(f'{kms:.4f}' for _, kms in tot)} ms", flush=True)
     for name, rs in runs.items():
-        ips = " / ".join(f"{r['serve']:.1f}" for r in rs)
-        print(f"fused ResNet-50 b{B} {name}: {ips} images/s", flush=True)
+        print(f"fused ResNet-50 b{B} {name}: "
+              f"{turns.joined(r['serve'] for r in rs)} images/s", flush=True)
     return 0
 
 

@@ -1,5 +1,5 @@
-"""Device timing with CUDA events (counterpart of the JAX
-``utils/profiling.py``).
+"""Device timing with CUDA events and torch.profiler (counterpart of the
+JAX ``utils/profiling.py``).
 
 Every number here is measured on the card: a function given CPU work, or
 run where there is no card, raises instead of timing the host.
@@ -61,3 +61,60 @@ def throughput(fn: Callable[[], object], batch: int, *, iters: int = 16,
     end.record()
     torch.cuda.synchronize()
     return batch * iters / (start.elapsed_time(end) / 1e3)
+
+
+def _hand_launches() -> int:
+    from cnns_slfp_quantization_tpu_torch import kernels
+
+    return sum(fn.launches for fn in kernels.WRAPPERS.values())
+
+
+def whole_runs(seen: list, floor: int) -> list:
+    """The device times of the profiled runs that recorded every kernel of
+    their calls, from ``seen``, each run's (kernel events, device time):
+    those with as many events as the fullest run (losing events never adds
+    any), and at least ``floor``, the kernels the calls are known to
+    launch.  None qualifies where no run recorded a kernel."""
+    full = max([floor] + [n for n, _ in seen])
+    return [t for n, t in seen if n == full] if full else []
+
+
+def kernel_ms(fn: Callable[[], object], *, reps: int = 5, runs: int = 3,
+              tries: int = 4) -> float:
+    """Device milliseconds per call of the kernels ``fn`` launches, from
+    torch.profiler (the host's share excluded): the median of ``runs``
+    profiled runs of ``reps`` calls.  Events around back-to-back calls of
+    a kernel of a few microseconds would time the host instead.
+
+    The profiler can lose kernel events, and a run that lost some reads
+    low.  So only runs that recorded every kernel count
+    (:func:`whole_runs`), the hand kernels known from the wrappers' launch
+    counts around an unprofiled call; the others are run again, up to
+    ``tries * runs`` runs in all, and then it raises."""
+    torch = _require_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    before = _hand_launches()
+    fn()
+    torch.cuda.synchronize()
+    floor = reps * (_hand_launches() - before)
+    seen = []           # (kernel events, device us) of each run
+    for _ in range(tries * runs):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        seen.append((sum(e.count for e in events),
+                     sum(e.self_device_time_total for e in events)))
+        whole = whole_runs(seen, floor)
+        if len(whole) >= runs:
+            return statistics.median(whole[:runs]) / 1e3 / reps
+    raise RuntimeError(
+        f"torch.profiler recorded every kernel of {reps} calls in only "
+        f"{len(whole_runs(seen, floor))} of {len(seen)} runs (kernel events "
+        f"per run: {[n for n, _ in seen]}; hand kernels per call: "
+        f"{floor // reps})")

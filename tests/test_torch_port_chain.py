@@ -16,6 +16,8 @@ inputs the plain K6 and JAX agree bit for bit; on the card K6 and the
 plain version do too (``chip_smoke.py``).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -209,22 +211,39 @@ def test_chain_quantize_bit_equal_to_jax():
 
 
 def test_plan_bands_and_limits():
-    """Rows per block at ResNet-50's shapes (stage 2 in two bands of 7
-    rows, stage 3 in bands of 4 and 3: a whole 7x7 image with 256-column
-    weight tiles does not fit), and the limit that keeps stage 0 off the
+    """Rows per band and blocks per band at ResNet-50's shapes, each GEMM
+    of a band in at most two 64-row wgmma tiles: stage 2 in two bands of 7
+    rows (a whole 14x14 image takes four tiles), stage 3 in whole 7x7
+    images, split over a pair of blocks at batch 64 (128 blocks) and not at
+    256, stage 1 in bands of 2; and the limit that keeps stage 0 off the
     card."""
-    assert tchain._plan(64, 14, 14, 1024, 256) == 7
-    assert tchain._plan(64, 7, 7, 2048, 512) == 4
-    assert tchain._plan(256, 7, 7, 2048, 512) == 4
-    assert tchain._plan(64, 28, 28, 512, 128) == 3
-    for w, m, rows in ((14, 256, 7), (7, 512, 4), (28, 128, 3)):
-        tm1, smem = tchain._smem_bytes(w, m, rows)
-        assert tm1 <= tchain.MAX_ROW_TILES and smem <= tchain.SMEM_LIMIT
-    assert tchain._smem_bytes(7, 512, 7)[1] > tchain.SMEM_LIMIT
+    assert tchain._plan(64, 14, 14, 1024, 256) == (7, 1)
+    assert tchain._plan(64, 7, 7, 2048, 512) == (7, 2)
+    assert tchain._plan(256, 7, 7, 2048, 512) == (7, 1)
+    assert tchain._plan(64, 28, 28, 512, 128) == (2, 1)
+    # M or C that does not halve into multiples of 16: no split
+    assert tchain._plan(2, 9, 11, 48, 48) == (1, 1)
+    for w, m, rows in ((14, 256, 7), (7, 512, 4), (7, 512, 7), (28, 128, 2)):
+        tiles, smem = tchain._smem_bytes(w, m, rows)
+        assert tiles <= tchain.MAX_ROW_TILES and smem <= tchain.SMEM_LIMIT
+    assert tchain._smem_bytes(14, 256, 14)[0] > tchain.MAX_ROW_TILES
+    assert tchain._smem_bytes(28, 128, 3)[0] > tchain.MAX_ROW_TILES
+    assert tchain._smem_bytes(7, 1024, 7)[1] > tchain.SMEM_LIMIT
     with pytest.raises(ValueError, match="56x56"):
         tchain._plan(64, 56, 56, 256, 64)
     with pytest.raises(ValueError, match="multiples of 16"):
         tchain._plan(1, 7, 7, 64, 24)
+
+
+def test_ftz_route_only_without_subnormals():
+    """K6 folds its epilogues' flushes into FTZ instructions only when no
+    affine parameter or reciprocal is subnormal."""
+    params = [torch.full((16,), v) for v in (0.5, -1.0, 0.25, 0.0, 2.0, 3.0)]
+    assert tchain.ftz_route(params, (0.2, 4.0, 1.0))
+    assert not tchain.ftz_route(params, (0.2, 1e-40, 1.0))
+    params[4] = params[4].clone()
+    params[4][3] = -1e-41
+    assert not tchain.ftz_route(params, (0.2, 4.0, 1.0))
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -321,7 +340,9 @@ def executor_run():
     with torch.no_grad():
         chain_packed = tfused.fused_apply(packed, torch.from_numpy(x),
                                           policy={"chain": [3, 2]})
-        default = tfused.fused_apply(frozen, torch.from_numpy(x))
+        # JAX's default placement (chain off; the port's default is {2, 3})
+        default = tfused.fused_apply(frozen, torch.from_numpy(x),
+                                     policy={"chain": frozenset()})
     return dict(x=x, vf=vf, scales=scales, chain=chain,
                 chain_packed=chain_packed, default=default, calls=calls,
                 launches=launches, packed=packed)
@@ -367,6 +388,26 @@ def test_fused_chain_runs_k6_at_every_stride1_block_of_stages_2_and_3(
     assert set(executor_run["launches"].values()) == {0}
 
 
+def test_fused_chain_decides_k6_route_once_per_block(executor_run):
+    """K6's route is decided with the block's weights, from its affines
+    and reciprocals: the FTZ route for the served blocks, the exact one
+    when an affine parameter or a reciprocal is subnormal."""
+    fw = executor_run["packed"]
+    assert len(fw.chain) == 7 and all(cw.ftz for cw in fw.chain.values())
+    blocks = dict(fw.blocks)
+    blk = dict(blocks["layer3_1"])
+    shift = blk["conv3"].shift.clone()
+    shift[5] = -1e-40
+    blk["conv3"] = dataclasses.replace(blk["conv3"], shift=shift)
+    blocks["layer3_1"] = blk
+    sub = dataclasses.replace(fw, blocks=blocks, chain={})
+    assert not tfused._chain_weights(sub, "layer3_1", (0.2, 4.0, 1.0)).ftz
+    fresh = dataclasses.replace(fw, chain={})
+    assert tfused._chain_weights(fresh, "layer3_1", (0.2, 4.0, 1.0)).ftz
+    assert not tfused._chain_weights(dataclasses.replace(fw, chain={}),
+                                     "layer3_1", (0.2, 1e-40, 1.0)).ftz
+
+
 @pytest.mark.parametrize("policy", [
     {"chain": {4}}, {"chain": "23"}, {"chain": 3}, {"chain": {2}, "dw": "x"},
     {"conv1": "pallas"}], ids=str)
@@ -376,9 +417,12 @@ def test_fused_rejects_bad_chain_policies(executor_run, policy):
                            policy=policy)
 
 
-def test_engine_serves_the_chain_policy(monkeypatch):
+@pytest.mark.parametrize("policy", [{"chain": {2, 3}}, None],
+                         ids=["chain23", "default"])
+def test_engine_serves_the_chain_policy(monkeypatch, policy):
+    """Stages 2 and 3 through K6, asked for or by default."""
     eng = InferenceEngine("resnet", qbit=8, batch_size=1, image_size=32,
-                          device="cpu", seed=0, policy={"chain": {2, 3}})
+                          device="cpu", seed=0, policy=policy)
     calls = []
     plain = tchain.bottleneck_chain_plain
     monkeypatch.setattr(tchain, "bottleneck_chain_plain",

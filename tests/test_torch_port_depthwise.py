@@ -206,3 +206,60 @@ def test_quantize_act_keeps_the_sign_of_zero_as_jax():
         want = np.asarray(jsfp.quantize_act(jnp.asarray(x), q))
         got = tsfp.quantize_act(torch.from_numpy(x), q).numpy()
         np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's block plan and its FTZ route (host side of csrc/depthwise.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hwc", [
+    (112, 112, 32), (56, 56, 128), (28, 28, 256), (14, 14, 512),
+    (7, 7, 1024), (16, 16, 32), (8, 8, 128), (4, 4, 256), (2, 2, 512),
+    (1, 1, 1024), (13, 11, 40), (13, 11, 30), (9, 10, 24), (1, 1, 64)],
+    ids=lambda s: "x".join(map(str, s)))
+def test_plan_covers_every_output_once(hwc):
+    """The kernel's index math over the plan's grid (csrc/depthwise.cu:
+    thread t owns channel group t % cg and column t / cg; block x is channel
+    tile x % ctiles and column tile x / ctiles; block y a band of ``rows``)
+    reaches every (row, column, group of 4 channels) exactly once, with at
+    most 256 threads a block; at MobileNetV1's sites no thread is idle."""
+    h, w, c = hwc
+    cg, tw, rows = tdw.plan(h, w, c)
+    assert 1 <= cg * tw <= 256 and rows <= 16
+    groups = -(-c // 4)
+    ctiles = -(-groups // cg)
+    t = np.arange(cg * tw)
+    bx = np.arange(ctiles * -(-w // tw))
+    grp = ((bx % ctiles)[:, None] * cg + t % cg).ravel()
+    col = ((bx // ctiles)[:, None] * tw + t // cg).ravel()
+    live = (grp < groups) & (col < w)
+    hits = np.zeros((h, w, groups), np.int64)
+    for r0 in range(0, h, rows):
+        np.add.at(hits, (slice(r0, min(r0 + rows, h)), col[live],
+                         grp[live]), 1)
+    assert (hits == 1).all()
+    if hwc[:2] in ((112, 112), (56, 56), (28, 28), (14, 14), (7, 7)):
+        assert live.all()
+
+
+def test_ftz_route_only_without_subnormals():
+    """The FTZ route equals the exact one only when no tap, scale, shift
+    or reciprocal is subnormal; the check reads each tensor as it is now,
+    also one made under inference mode and changed in place."""
+    w, s, t = torch.ones(3, 3, 8), torch.ones(8), torch.zeros(8)
+    assert tdw.ftz_route(w, s, t, 0.37)
+    assert tdw.ftz_route(w, None, None, None)
+    assert not tdw.ftz_route(w, s, t, 1e-40)
+    sub = torch.full((8,), 1e-40)
+    assert not tdw.ftz_route(w, sub, t, 0.37)
+    assert not tdw.ftz_route(w, s, -sub, None)
+    w2 = torch.ones(3, 3, 8)
+    assert tdw.ftz_route(w2, s, t, None)
+    w2[1, 2, 3] = -1e-42
+    assert not tdw.ftz_route(w2, s, t, None)
+    with torch.inference_mode():
+        w3 = torch.ones(3, 3, 8)
+        assert tdw.ftz_route(w3, s, t, None)
+        w3[0, 0, 0] = 1e-39
+        assert not tdw.ftz_route(w3, s, t, None)

@@ -37,6 +37,7 @@ from cnns_slfp_quantization_tpu_torch.ops import activations as tact
 from cnns_slfp_quantization_tpu_torch.ops import freeze as tfreeze
 from cnns_slfp_quantization_tpu_torch.ops import sfp as tsfp
 from cnns_slfp_quantization_tpu_torch.ops.layers import QuantConv
+from cnns_slfp_quantization_tpu_torch import serve as tserve
 from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
 from cnns_slfp_quantization_tpu_torch.train.checkpoint import (
     load_jax_variables)
@@ -378,6 +379,24 @@ def test_dw_kernel_route_against_torch_route(monkeypatch, setups, executors,
     _agree(outs[0], outs[1], 0.995)
 
 
+def test_fused_decides_k5_route_when_it_prepares(monkeypatch, executors):
+    """``prepare`` decides K5's route once per site from its taps, affine
+    and reciprocal, and every forward hands that decision to the wrapper
+    (which would otherwise read the operands on each launch)."""
+    fw = executors("mobilenet")[0]
+    assert fw.dw_ftz == [tdw.ftz_route(fw.dw_taps[b], fw.dw[b].scale,
+                                       fw.dw[b].shift, fw.recips[2 + 2 * b])
+                         for b in range(len(fw.dw))]
+    assert all(fw.dw_ftz)
+    seen = []
+    wrapper = tdw.dw3x3
+    monkeypatch.setattr(tfused.k5, "dw3x3", lambda *a, **k: seen.append(
+        k["ftz"]) or wrapper(*a, **k))
+    with torch.no_grad():
+        tfused.fused_apply(fw, torch.zeros(1, 32, 32, 3))
+    assert seen == [True] * 9
+
+
 def test_fused_rejects_unknown_policy_and_classifier(executors):
     fw = executors("mobilenet")[0]
     x = torch.zeros(1, 32, 32, 3)
@@ -395,7 +414,7 @@ def test_fused_rejects_unknown_policy_and_classifier(executors):
 
 
 @pytest.mark.parametrize("net,fusable,size", [
-    ("mobilenet", True, 32), ("cifar/mobilenet", True, 32),
+    ("mobilenet", True, 32), ("cifar/mobilenet", True, 224),
     ("mobilenetv1", True, 224), ("mobilenet_swish", False, 32)])
 def test_engine_auto_rule(net, fusable, size):
     kw = dict(qbit=8, batch_size=1, device="cpu")
@@ -408,6 +427,15 @@ def test_engine_auto_rule(net, fusable, size):
     else:
         with pytest.raises(ValueError, match="fused=True"):
             InferenceEngine(net, fused=True, **kw)
+
+
+@pytest.mark.parametrize("net", tmodels.NAMES)
+def test_default_image_size_is_jax_rule(net):
+    """The default image size of every name the registry accepts is JAX's
+    (serve.py:85-86): 32 only for a bare CIFAR name, so a slash-prefixed
+    ``cifar/...`` name gets 224 there and here."""
+    want = 32 if net in jmodels.MODEL_NAMES["cifar"] else 224
+    assert tserve.default_image_size(net) == want
 
 
 def test_engine_serves_the_fused_executor_with_a_policy(setups):

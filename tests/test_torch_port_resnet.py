@@ -28,12 +28,16 @@ from cnns_slfp_quantization_tpu_torch.train.checkpoint import (
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "cnns_slfp_quantization_tpu_torch"
-# (JAX policy, port policy)
+# (JAX policy, port policy); JAX's chain is empty by default, the port's
+# {2, 3}, so the port names it
+_NO_CHAIN = {"chain": frozenset()}
 POLICIES = [
-    ({"conv1": "pallas", "conv3": "xla"}, {"conv1": "kernel", "conv3": "torch"}),
-    ({"conv1": "xla", "conv3": "xla"}, {"conv1": "torch", "conv3": "torch"}),
+    ({"conv1": "pallas", "conv3": "xla"},
+     {"conv1": "kernel", "conv3": "torch", **_NO_CHAIN}),
+    ({"conv1": "xla", "conv3": "xla"},
+     {"conv1": "torch", "conv3": "torch", **_NO_CHAIN}),
     ({"conv1": "pallas", "conv3": "pallas"},
-     {"conv1": "kernel", "conv3": "kernel"}),
+     {"conv1": "kernel", "conv3": "kernel", **_NO_CHAIN}),
 ]
 
 
