@@ -9,14 +9,21 @@
 2. Kernel phases at the shapes each path gives each kernel at batch 64 and
    224x224: every kernel against its plain PyTorch version on the same
    inputs on the card.  K1 (act quantize) and K3 (epilogue) must be
-   bit-equal.  K2 (fused 1x1 GEMM) and K4 (fused quantize-decode GEMM) sum
+   bit-equal at every served site in the form it serves (a bf16 output, or
+   a float32 one holding the same values where cuDNN or a plain matmul
+   reads it) and in every form on both routes (FTZ, and exact where a
+   reciprocal or a scale element is subnormal), K3 also in the forms no
+   executor serves and at a C that is not a multiple of 8 (its scalar
+   kernel).  K2 (fused 1x1 GEMM) and K4 (fused quantize-decode GEMM) sum
    in another order: raw bf16 and f32 outputs within one ulp of their type
    plus the reordering bound K * 2**-22 * (sum of the terms' magnitudes),
    which is one ulp unless the sum cancels to near zero; quantized outputs
    within one step of the quantizer's output in at most 0.1% of elements.
    Both give the same bits in two launches at every shape checked (split-K
    included: its partials are added in a fixed order).  K2 is checked at
-   the 16 shapes of the fused ResNet-50 executor and K4 at SqueezeNet
+   the 16 shapes of the fused ResNet-50 executor (at the conv1 sites its
+   float32 output, the operand cuDNN's conv2 reads, must be its bf16
+   output widened, bit for bit) and K4 at SqueezeNet
    1.0's, AlexNet's, ResNet-50's and MobileNetV1's 1x1 / dense shapes, both
    over uint8 and bf16-value weights, and at ragged shapes and split-K at
    ragged K; K4 also over every flag (signed and nonneg prologue,
@@ -24,12 +31,14 @@
    weight layouts).  Each K2/K4 time is printed beside the tile plan, its
    time between CUDA events and the wmma design's time taken so.  K5
    (depthwise 3x3) must be bit-equal at MobileNetV1's 9 stride-1 sites
-   (ImageNet at batch 64 and 256, CIFAR at 64) in three forms (serving:
-   bf16, ReLU, quantize; f32 out without ReLU; nonneg_in without ReLU) on
-   its FTZ route and in the serving form on its exact route (a subnormal
-   tap), and at odd shapes (subnormal f32 x included), and is timed on both
-   routes against cuDNN's grouped conv alone and against the grouped conv +
-   K3 chain it replaces.  K6 (the bottleneck chain) must be bit-equal on
+   (ImageNet at batch 64 and 256, CIFAR at 64) in four forms (serving:
+   ReLU, quantize, bf16 out, and the same with f32 out, the form the
+   executor serves; f32 out without ReLU; nonneg_in without ReLU) on its
+   FTZ route and in the serving form on its exact route (a subnormal tap),
+   and at odd shapes (subnormal f32 x included), and is timed in the form
+   it serves, on both routes (and with bf16 out), against cuDNN's grouped
+   conv alone and against the grouped conv + K3 chain it replaces.  K6
+   (the bottleneck chain) must be bit-equal on
    exact inputs (every sum exact in float32), on its FTZ route and on its
    exact route (a subnormal affine parameter), at narrow widths, odd
    shapes, each kind of band its plan makes (a ragged last band, a band
@@ -40,14 +49,13 @@
    outputs to cosine > 0.99999 and quantized ones to one step in at most 1%
    of elements (more than one step in at most 0.1%): it sums in another
    order, so a y1 or y2 value at a bin edge may flip.  It is timed against
-   the route it replaces (K2 conv1, the f32 copy and cuDNN's 3x3, K3, K2
-   conv3), and stage 0 must be refused.  Times are medians of 20 runs of 5
-   back-to-back calls between CUDA events, except K2's, K4's and K5's and
-   their yardsticks' (``torch.matmul``, the grouped conv and its route):
-   kernels of a few microseconds, whose device time torch.profiler gives
-   (``profiling.kernel_ms``, which counts only runs that recorded every
-   kernel), where events would time the host; their event times are
-   printed beside.
+   the route it replaces (K2 conv1 writing float32, cuDNN's 3x3, K3, K2
+   conv3), and stage 0 must be refused.  Times are device time from
+   torch.profiler (``profiling.kernel_ms``, which counts only runs that
+   recorded every kernel), with the medians of 20 runs of 5 back-to-back
+   calls between CUDA events printed beside for K1-K5 (events around
+   kernels of a few microseconds time the host), except K6's and its
+   route's, which are event times.
 3. Paths, each with the launch counts reset just before it and read just
    after it, over requests of 64, 64 and 17 images:
    - ResNet-50 fused executor with K6 off, ``InferenceEngine("resnet",
@@ -85,7 +93,8 @@
    batch 256.
 4. A torch.profiler breakdown per forward of the ResNet-50 fused executor
    (default ``chain={2,3}`` and chain off), the MobileNetV1 fused executor
-   (both ``dw`` routes) and SqueezeNet 1.0's module path.
+   (both ``dw`` routes) and SqueezeNet 1.0's module path, with the bf16 ->
+   float32 copies that remain counted apart.
 
 The line before the last is one JSON object with, for each kernel, its
 launches over the run of its first path (``launches``, three forwards) and
@@ -299,9 +308,12 @@ def main() -> int:
     from cnns_slfp_quantization_tpu_torch.ops import sfp
     from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
     from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
-    from cnns_slfp_quantization_tpu_torch.utils import bench_gemm
+    from cnns_slfp_quantization_tpu_torch.utils import (
+        bench_epilogue,
+        bench_gemm,
+    )
     from cnns_slfp_quantization_tpu_torch.utils.profiling import (
-        kernel_ms, median_ms, throughput)
+        kernel_ms, median_ms, print_forward_profile, throughput)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -348,137 +360,81 @@ def main() -> int:
         bi = b.view(torch.int16) if b.dtype == torch.bfloat16 else b.view(torch.int32)
         return bool(torch.equal(ai, bi))
 
-    # ----------------------------------------------------- module paths
-    sq_rc = [sfp.recip_of(a) for a in calib.load_scales("squeezenet_imgnet").ka]
-    ax_rc = [sfp.recip_of(a) for a in calib.load_scales("alexnet_imgnet").ka]
-
-    def module_sites():
-        """K1 and K4 sites of the module paths at batch 64, 224x224:
-        {path: [(NHWC input shape, recip, launches per forward)]} for K1
-        (the input quantize of every layer K4 does not take) and {path:
-        [(input shape, K, N, stride, bias, launches per forward)]} for K4
-        (2-D input shape for a dense layer; ``bench_gemm.k4_sites``)."""
+    def k5_sites(size):
+        """MobileNetV1's K5 sites at batch B for size x size images:
+        {NHWC shape: launches per forward}."""
         from collections import Counter
 
-        from cnns_slfp_quantization_tpu_torch.models.alexnet import CONVS
-        from cnns_slfp_quantization_tpu_torch.models.squeezenet import (
-            FIRE_PLAN,
-            POOL_BEFORE,
-        )
-
-        stem = ((B, 224, 224, 3), None, 1)
-        k1s = {"squeezenet": [stem], "alexnet": [stem],
-               "resnet_module": [stem]}
-        k4s = bench_gemm.k4_sites(B)
-        # SqueezeNet 1.0: stem 109, ceil pools to 54, 27, 13
-        res, sq1 = 54, Counter()
-        for f, (sq, _, _) in enumerate(FIRE_PLAN):
-            if f in POOL_BEFORE and f:
-                res = -(-(res - 3) // 2) + 1
-            sq1[((B, res, res, sq), sq_rc[3 + 3 * f])] += 1
-        k1s["squeezenet"] += [(sh, r, c) for (sh, r), c in sq1.items()]
-        # AlexNet: convs 55, 27, 13, 13, 13 (pools 27, 13, 6), FC 9216
-        res, cin = 55, 64
-        for sid, (feat, _, _, _, pool) in enumerate(CONVS[1:], start=1):
-            if CONVS[sid - 1][4]:
-                res = (res - 3) // 2 + 1
-            k1s["alexnet"].append(((B, res, res, cin), ax_rc[sid], 1))
-            cin = feat
-        # ResNet-50 with use_pallas=True: every 1x1 conv and the FC on K4,
-        # the stem and the 3x3 convs' inputs through K1
-        rn1, res = Counter(), 56
-        for planes, blocks, stride, base in [(64, 3, 1, 1), (128, 4, 2, 11),
-                                             (256, 6, 2, 24),
-                                             (512, 3, 2, 43)]:
-            for b in range(blocks):
-                rn1[((B, res, res, planes), rc[base + 3 * b + 2])] += 1
-                res //= stride if b == 0 else 1
-        k1s["resnet_module"] += [(sh, r, c) for (sh, r), c in rn1.items()]
-        for path, want in (("squeezenet", (9, 17)), ("alexnet", (5, 3)),
-                           ("resnet_module", (17, 37))):
-            got = (sum(c for *_, c in k1s[path]),
-                   sum(c for *_, c in k4s[path]))
-            assert got == want, (path, got, want)
-        return k1s, k4s
-
-    k1_module_sites, k4_module_sites = module_sites()
-
-    def mobilenet_sites(size):
-        """MobileNetV1's kernel sites at batch B for size x size images, per
-        forward: K3 {(NHWC shape, form): n} and K5 {NHWC shape: n} of the
-        fused executor, and the depthwise inputs {NHWC shape: n} that K1
-        quantizes on the module path (K4's: ``bench_gemm.k4_sites``)."""
-        from collections import Counter
-
-        k3s, k5s, k1s = Counter(), Counter(), Counter()
+        k5s = Counter()
         res = (size - 1) // 2 + 1             # stem 3x3/s2/p1
-        k3s[((B, res, res, 32), "q")] += 1
-        for b, (inp, oup, stride) in enumerate(DW_CONFIG):
-            out = (res - 1) // stride + 1
-            k1s[(B, res, res, inp)] += 1
+        for inp, _, stride in DW_CONFIG:
             if stride == 1:
                 k5s[(B, res, res, inp)] += 1
-            else:
-                k3s[((B, out, out, inp), "q")] += 1
-            res = out
-            last = b == len(DW_CONFIG) - 1
-            k3s[((B, res, res, oup), "raw_relu" if last else "q")] += 1
-        assert (sum(k3s.values()), sum(k5s.values()),
-                sum(k1s.values())) == (18, 9, 13)
-        return k3s, k5s, k1s
+            res = (res - 1) // stride + 1
+        assert sum(k5s.values()) == 9
+        return k5s
 
-    mn_sites = {"mobilenetv1_fused": mobilenet_sites(224),
-                "mobilenet_fused": mobilenet_sites(32)}
-    k1_module_sites["mobilenetv1_module"] = [((B, 224, 224, 3), None, 1)] + [
-        (shape, rc[2], n) for shape, n in mn_sites["mobilenetv1_fused"][2].items()]
+    mn_k5_sites = {"mobilenetv1_fused": k5_sites(224),
+                   "mobilenet_fused": k5_sites(32)}
+    k4_module_sites = bench_gemm.k4_sites(B)
 
     # ------------------------------------------------------------------ K1
+    def timed(call, plain):
+        """(device ms from the profiler, ms between CUDA events, plain ms)
+        of a kernel call and its plain version."""
+        return (kernel_ms(call), median_ms(call),
+                median_ms(plain, iters=5, inner=1))
+
     @phase("K1 act_quantize")
     def k1_phase():
-        cases = [  # (path, shape, dtype, recip, nonneg, launches per forward)
-            ("resnet_fused", (B, 224, 224, 3), torch.float32, rc[0], False,
-             1),                                                # stem input
-            ("resnet_fused", (B, 56, 56, 64), torch.bfloat16, rc[1], True,
-             1),                                                # stage 0
-            ("resnet_fused", (B, 2048), torch.float32, rc[53], True, 1),
-        ]
-        cases += [
-            ("mobilenetv1_fused", (B, 224, 224, 3), torch.float32, rc[0],
-             False, 1),
-            ("mobilenet_fused", (B, 32, 32, 3), torch.float32, rc[0], False,
-             1),
-            ("mobilenet_fused", (B, 1024), torch.float32, rc[53], True, 1),
-        ]
-        stem_rc = {"squeezenet": sq_rc[0], "alexnet": ax_rc[0],
-                   "resnet_module": rc[0], "mobilenetv1_module": rc[0]}
-        for path, sites in k1_module_sites.items():
-            for shape, r, per_fwd in sites:
-                if r is None:  # the stem: the signed f32 image
-                    cases.append((path, shape, torch.float32, stem_rc[path],
-                                  False, per_fwd))
-                else:
-                    cases.append((path, shape, torch.bfloat16, r, True,
-                                  per_fwd))
-        for path, shape, dt, r, nonneg, per_fwd in cases:
-            x = randn(*shape, scale=1.0 / r * 1.5)
-            if nonneg:
-                x = x.abs()
-            x = x.to(dt)
-            got = k1.act_quantize(x, r, nonneg=nonneg)
-            want = k1.act_quantize_plain(x, r, nonneg=nonneg)
-            torch.cuda.synchronize()
-            assert same_bits(got, want), f"K1 {shape} not bit-equal"
-            ms = median_ms(lambda: k1.act_quantize(x, r, nonneg=nonneg))
-            pms = median_ms(lambda: k1.act_quantize_plain(x, r, nonneg=nonneg),
-                            iters=5, inner=1)
-            n = x.numel()
-            nbytes = n * (x.element_size() + 2)
+        # every served site in the form its consumer reads (f32 for cuDNN
+        # and the plain matmuls), on the FTZ route the executors' normal
+        # reciprocals take
+        seen = {}
+        for path, shape, dt, r, nonneg, per_fwd, f32 in \
+                bench_epilogue.k1_sites(B):
+            od = torch.float32 if f32 else torch.bfloat16
+            key = (shape, dt, nonneg, f32)
+            if key not in seen:
+                x = randn(*shape, scale=1.5 / r)
+                x = (x.abs() if nonneg else x).to(
+                    torch.float32 if dt == "f32" else torch.bfloat16)
+                kw = dict(nonneg=nonneg, out_dtype=od)
+                before = k1.act_quantize.ftz_launches
+                got = k1.act_quantize(x, r, **kw)
+                assert k1.act_quantize.ftz_launches - before == 1
+                want = k1.act_quantize_plain(x, r, **kw)
+                torch.cuda.synchronize()
+                assert same_bits(got, want), f"K1 {shape} {od} not bit-equal"
+                n = x.numel()
+                nbytes = n * (x.element_size() + got.element_size())
+                seen[key] = timed(lambda: k1.act_quantize(x, r, **kw),
+                                  lambda: k1.act_quantize_plain(x, r, **kw)) \
+                    + (nbytes, n)
+            ms, ems, pms, nbytes, n = seen[key]
             rows["k1"].add(per_fwd, ms, pms, nbytes, n * K1_OPS, F32_OPS,
                            path=path)
-            print(f"  K1 {path} {shape} {dt} x{per_fwd}: {ms:.4f} ms, plain "
-                  f"{pms:.4f} ms, bound "
+            print(f"  K1 {path} {shape} {dt} -> {od} x{per_fwd}: {ms:.4f} "
+                  f"ms (events {ems:.4f}), plain {pms:.4f} ms, bound "
                   f"{bound_ms(nbytes, n * K1_OPS, F32_OPS)[0]:.4f} ms",
                   flush=True)
+        # every form on both routes: qbit 7 and 8, signed and nonneg, f32
+        # and bf16 in and out; a subnormal reciprocal takes the exact route
+        # (on huge inputs, so that products are not all flushed)
+        for qbit in (7, 8):
+            for nonneg in (True, False):
+                for dt in (torch.float32, torch.bfloat16):
+                    for od in (torch.bfloat16, torch.float32):
+                        for r, scale in ((rc[3], 5.0), (2e-39, 2e37)):
+                            x = randn(B, 14, 14, 256, scale=scale)
+                            x = (x.abs() if nonneg else x).to(dt)
+                            kw = dict(qbit=qbit, nonneg=nonneg, out_dtype=od)
+                            before = k1.act_quantize.ftz_launches
+                            got = k1.act_quantize(x, r, **kw)
+                            ftz = k1.act_quantize.ftz_launches - before
+                            assert ftz == int(r > 1e-30), (r, ftz)
+                            assert same_bits(got, k1.act_quantize_plain(
+                                x, r, **kw)), f"K1 form {kw} {dt} {r}"
         # the Pallas kernel's own form (f32 -> f32, bf16 -> bf16)
         for dt in (torch.float32, torch.bfloat16):
             x = randn(B, 28, 28, 128, scale=6.0).to(dt)
@@ -486,8 +442,10 @@ def main() -> int:
                              k1.slfp34_act_quantize_plain(x)), dt
         # scalar tail and unaligned path
         x = randn(1000003, scale=5.0)[1:]
-        assert same_bits(k1.act_quantize(x, rc[3], nonneg=False),
-                         k1.act_quantize_plain(x, rc[3], nonneg=False))
+        for od in (torch.bfloat16, torch.float32):
+            assert same_bits(
+                k1.act_quantize(x, rc[3], nonneg=False, out_dtype=od),
+                k1.act_quantize_plain(x, rc[3], nonneg=False, out_dtype=od))
 
     # ------------------------------------------------------------------ K2
     flag_sets = bench_gemm.k2_flags(rc)
@@ -522,6 +480,8 @@ def main() -> int:
             flags = dict(flag_sets[site])
             res = randn(m, n, scale=2.0).to(torch.bfloat16) \
                 if flags.pop("residual", False) else None
+            # conv1 writes the f32 operand cuDNN's conv2 reads
+            out_f32 = flags.pop("out_f32", False)
             raw_in = "quant_in_recip" in flags
             x = randn(m, k, scale=3.0).abs().to(torch.bfloat16)
             if not raw_in:  # a quantized input, as the producer emits it
@@ -536,6 +496,17 @@ def main() -> int:
             for w in (sfp.pack_slfp34(wq).t(), wq.to(torch.bfloat16).t()):
                 label = f"K2 {site} M={m} K={k} N={n} {w.dtype}"
                 k2_case(x, w, s, t, res, flags, label, mag, k)
+                if out_f32:
+                    # the f32 form is the bf16 form widened, bit for bit
+                    got = k2.qmm_fused(x, w, s, t, residual=res,
+                                       out_dtype=torch.float32, **flags)
+                    bf = k2.qmm_fused(x, w, s, t, residual=res, **flags)
+                    torch.cuda.synchronize()
+                    assert got.dtype == torch.float32
+                    assert same_bits(got, bf.float()), \
+                        f"{label}: f32 output is not the bf16 one widened"
+            if out_f32:
+                flags["out_dtype"] = torch.float32
             args = (x, w, s, t)   # bf16 weights: the path's default
             ms = kernel_ms(lambda: k2.qmm_fused(*args, residual=res,
                                                 **flags))
@@ -545,7 +516,8 @@ def main() -> int:
             lms = kernel_ms(lambda: torch.matmul(x, wb))
             ems = median_ms(lambda: k2.qmm_fused(*args, residual=res,
                                                  **flags))
-            nbytes = (m * k * 2 + k * n * 2 + n * 8 + m * n * 2
+            nbytes = (m * k * 2 + k * n * 2 + n * 8 + m * n * (4 if out_f32
+                                                               else 2)
                       + (m * n * 2 if res is not None else 0))
             ops = 2 * m * k * n
             rows["k2"].add(per_fwd, ms, pms, nbytes, ops, BF16_FLOPS, lms)
@@ -554,7 +526,8 @@ def main() -> int:
                   f"({ops / ms / 1e9:.1f} TFLOP/s; events {ems:.4f}, wmma "
                   f"design {OLD_K2_MS[(site, m, k, n)]:.4f}), plain {pms:.4f}, "
                   f"torch.matmul {lms:.4f}, bound {bms:.4f} ({by}); "
-                  f"{plan_str(m, k, n, res is not None)}", flush=True)
+                  f"{plan_str(m, k, n, res is not None)}"
+                  + ("; f32 out" if out_f32 else ""), flush=True)
         # f32 output and ragged M / K / N (multiples of 8: rows of 72 codes
         # go by cp.async) with [K, N] weights, and split-K at ragged K with
         # [N, K] storage
@@ -578,73 +551,77 @@ def main() -> int:
                   flush=True)
 
     # ------------------------------------------------------------------ K3
-    def k3_sites():
-        """(path, shape, form, launches per forward) of the epilogue
-        sites."""
-        out = [("resnet_fused", (B, 112, 112, 64), "raw_relu", 1)]
-        res, in_stride = 56, [1, 2, 2, 2]
-        for s, (planes, blocks) in enumerate([(64, 3), (128, 4), (256, 6),
-                                              (512, 3)]):
-            res //= in_stride[s]
-            out.append(("resnet_fused", (B, res, res, planes * 4),
-                        "raw_norelu", 1))
-            out.append(("resnet_fused", (B, res, res, planes), "q", blocks))
-            out.append(("resnet_fused", (B, res, res, planes * 4), "dual",
-                        0))
-            if s < 3:
-                out.append(("resnet_fused", (B, res, res, planes * 4),
-                            "q_res", 0))
-        for path, (k3s, *_) in mn_sites.items():
-            out += [(path, shape, form, n) for (shape, form), n in k3s.items()]
-        return out
-
-    forms = {
-        "raw_relu": dict(relu=True),
-        "raw_norelu": dict(relu=False),
-        "q": dict(relu=True, emit_raw=False, quant_recip=rc[3]),
-        "dual": dict(relu=True, quant_recip=rc[4], identity=True),
-        "q_res": dict(relu=True, emit_raw=False, quant_recip=rc[11],
-                      identity=True),
-    }
+    def k3_case(shape, form, q_f32, sub=False):
+        """K3 in ``form`` (``bench_epilogue.FORMS``) on inputs of
+        ``shape``, against its plain version, bit for bit; ``sub``: one
+        subnormal scale element, which takes the exact route.  Returns
+        (kernel call, plain call, bytes, elements)."""
+        y, s, t, ident = bench_epilogue.k3_inputs(shape, form, gen, dev)
+        if sub:
+            s[0] = 1e-39
+        y.view(-1)[::97] = 3e-39       # flushed on either route
+        kw = {k: v for k, v in bench_epilogue.FORMS[form].items()
+              if k not in ("quant", "identity")}
+        if bench_epilogue.FORMS[form].get("quant"):
+            kw.update(quant_recip=rc[3],
+                      q_dtype=torch.float32 if q_f32 else torch.bfloat16)
+        before = k3.bn_epilogue.ftz_launches
+        got = k3.bn_epilogue(y, s, t, identity=ident, **kw)
+        assert k3.bn_epilogue.ftz_launches - before == int(not sub)
+        want = k3.bn_epilogue_plain(y, s, t, identity=ident, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert same_bits(g, w), \
+                    f"K3 {form} {shape} q_f32={q_f32} sub={sub} not bit-equal"
+        n = y.numel()
+        nbytes = sum(v.numel() * v.element_size()
+                     for v in (y, ident, s, t, *got) if v is not None)
+        ftz = not sub
+        return (lambda: k3.bn_epilogue(y, s, t, identity=ident, ftz=ftz,
+                                       **kw),
+                lambda: k3.bn_epilogue_plain(y, s, t, identity=ident, **kw),
+                nbytes, n)
 
     @phase("K3 bn_epilogue")
     def k3_phase():
-        for path, shape, form, per_fwd in k3_sites():
-            kw = dict(forms[form])
-            c = shape[-1]
-            y = randn(*shape, scale=40.0)
-            ident = (randn(*shape, scale=2.0).to(torch.bfloat16)
-                     if kw.pop("identity", False) else None)
-            s = torch.rand(c, device=dev, generator=gen) * 0.02 + 1e-3
-            t = randn(c, scale=0.5)
-            got = k3.bn_epilogue(y, s, t, identity=ident, **kw)
-            want = k3.bn_epilogue_plain(y, s, t, identity=ident, **kw)
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                assert (g is None) == (w is None)
-                if g is not None:
-                    assert same_bits(g, w), f"K3 {form} {shape} not bit-equal"
-            ms = median_ms(lambda: k3.bn_epilogue(y, s, t, identity=ident,
-                                                  **kw))
-            pms = median_ms(lambda: k3.bn_epilogue_plain(
-                y, s, t, identity=ident, **kw), iters=5, inner=1)
-            n = y.numel()
-            outs = sum(1 for g in got if g is not None)
-            nbytes = n * (4 + (2 if ident is not None else 0) + 2 * outs) \
-                + c * 8
-            if per_fwd:
-                rows["k3"].add(per_fwd, ms, pms, nbytes, n * K3_OPS, F32_OPS,
-                               path=path)
-            print(f"  K3 {path} {form} {shape} x{per_fwd}: {ms:.4f} ms, plain "
+        # every served site in the form its consumer reads, timed on the
+        # FTZ route as the executors pass it
+        seen = {}
+        for path, shape, form, q_f32, per_fwd in bench_epilogue.k3_sites(B):
+            key = (shape, form, q_f32)
+            if key not in seen:
+                call, plain, nbytes, n = k3_case(shape, form, q_f32)
+                seen[key] = timed(call, plain) + (nbytes, n)
+            ms, ems, pms, nbytes, n = seen[key]
+            rows["k3"].add(per_fwd, ms, pms, nbytes, n * K3_OPS, F32_OPS,
+                           path=path)
+            print(f"  K3 {path} {form}{' f32 q' if q_f32 else ''} {shape} "
+                  f"x{per_fwd}: {ms:.4f} ms (events {ems:.4f}), plain "
                   f"{pms:.4f} ms, bound "
                   f"{bound_ms(nbytes, n * K3_OPS, F32_OPS)[0]:.4f} ms",
                   flush=True)
-        # odd channel count: the scalar path
-        y = randn(7, 13, 20)
-        s, t = torch.rand(20, device=dev) + 0.1, randn(20)
-        for g, w in zip(k3.bn_epilogue(y, s, t, quant_recip=rc[2]),
-                        k3.bn_epilogue_plain(y, s, t, quant_recip=rc[2])):
-            assert same_bits(g, w), "K3 scalar path"
+        # every form the executors serve, q in both types, on both routes
+        # (ResNet-50's torch policies serve the dual and q_res forms); the
+        # forms no executor serves, and a C that is not a multiple of 8,
+        # take the scalar kernel
+        for form in bench_epilogue.FORMS:
+            for q_f32 in (False, True):
+                for sub in (False, True):
+                    k3_case((B, 14, 14, 256), form, q_f32, sub)
+                    k3_case((3, 1000, 4096), form, q_f32, sub)
+        for c in (20, 64):
+            y = randn(7, 13, c)
+            s, t = torch.rand(c, device=dev) + 0.1, randn(c)
+            for kw in (dict(quant_recip=rc[2]), dict(relu=False),
+                       dict(quant_recip=rc[2], q_dtype=torch.float32),
+                       dict(relu=False, emit_raw=False, quant_recip=rc[2])):
+                for g, w in zip(k3.bn_epilogue(y, s, t, **kw),
+                                k3.bn_epilogue_plain(y, s, t, **kw)):
+                    assert (g is None) == (w is None)
+                    assert g is None or same_bits(g, w), \
+                        f"K3 scalar kernel C={c} {kw}"
 
     # ------------------------------------------------------------------ K4
     ka4, kw4 = 0.37, 0.11  # x / ka spans the quantizer's range below
@@ -764,6 +741,8 @@ def main() -> int:
         the serving form, f32 out without ReLU, and the quantize with
         nonneg_in and no ReLU (on non-negative inputs and taps)."""
         return [("serve", x, w, dict(relu=True, quant_out_recip=r)),
+                ("serve f32", x, w, dict(relu=True, quant_out_recip=r,
+                                         out_dtype=torch.float32)),
                 ("f32", x, w, dict(relu=False, out_dtype=torch.float32)),
                 ("nonneg_in", x.abs(), w.abs(),
                  dict(relu=False, nonneg_in=True, quant_out_recip=r))]
@@ -805,29 +784,32 @@ def main() -> int:
     def k5_phase():
         r = rc[2]
         cases = [("mobilenetv1_fused", shape, n) for shape, n in
-                 mn_sites["mobilenetv1_fused"][1].items()]
+                 mn_k5_sites["mobilenetv1_fused"].items()]
         cases += [("mobilenetv1_fused_b256", (256,) + shape[1:], n)
                   for _, shape, n in cases]
         cases += [("mobilenet_fused", shape, n) for shape, n in
-                  mn_sites["mobilenet_fused"][1].items()]
+                  mn_k5_sites["mobilenet_fused"].items()]
         for path, shape, per_fwd in cases:
             x, w, s, t = k5_check(shape, r)
             c = shape[-1]
             # device time (profiler): events around these few-us kernels
             # would time the wrapper's host work
-            # each route as the executor passes it, decided once
+            # each route as the executor passes it, decided once, in the
+            # form it serves: f32 out, the pointwise matmul's operand
             assert k5.ftz_route(w, s, t, r)
-            ms = kernel_ms(lambda: k5.dw3x3(x, w, scale=s, shift=t, relu=True,
-                                            quant_out_recip=r, ftz=True))
+            kw = dict(relu=True, quant_out_recip=r, out_dtype=torch.float32)
+            ms = kernel_ms(lambda: k5.dw3x3(x, w, scale=s, shift=t, ftz=True,
+                                            **kw))
             ems = median_ms(lambda: k5.dw3x3(x, w, scale=s, shift=t,
-                                             relu=True, quant_out_recip=r,
-                                             ftz=True))
+                                             ftz=True, **kw))
+            bf16_ms = kernel_ms(lambda: k5.dw3x3(
+                x, w, scale=s, shift=t, relu=True, quant_out_recip=r,
+                ftz=True))
             w_sub = k5_subnormal_tap(w)
             exact_ms = kernel_ms(lambda: k5.dw3x3(
-                x, w_sub, scale=s, shift=t, relu=True, quant_out_recip=r,
-                ftz=False))
-            pms = median_ms(lambda: k5.dw3x3_plain(
-                x, w, s, t, relu=True, quant_out_recip=r), iters=5, inner=1)
+                x, w_sub, scale=s, shift=t, ftz=False, **kw))
+            pms = median_ms(lambda: k5.dw3x3_plain(x, w, s, t, **kw),
+                            iters=5, inner=1)
             # the library call: cuDNN's grouped conv alone, on the same
             # bf16 operands (NCHW views of channels-last memory)
             xn = x.permute(0, 3, 1, 2)
@@ -835,23 +817,23 @@ def main() -> int:
                 memory_format=torch.channels_last)
             lms = kernel_ms(lambda: F.conv2d(xn, wn, padding=1, groups=c))
             # the route it replaces (dw="torch"): f32 grouped conv of the
-            # bf16 values, then K3, under the executor's flags
+            # bf16 values, then K3 writing f32, under the executor's flags
             conv = ConvKxK(w=wn.float(), scale=s, shift=t, stride=1, pad=1,
                            groups=c)
             with backend_flags():
                 chain = kernel_ms(lambda: k3.bn_epilogue(
                     _conv_f32(x, conv), s, t, relu=True, emit_raw=False,
-                    quant_recip=r))
+                    quant_recip=r, q_dtype=torch.float32, ftz=True))
             n = x.numel()
-            nbytes = n * 4 + 9 * c * 4 + 2 * c * 4
+            nbytes = n * (2 + 4) + 9 * c * 4 + 2 * c * 4
             ops = n * (DW_OPS + K3_OPS)
             bms, by = bound_ms(nbytes, ops, F32_OPS)
             if not path.endswith("_b256"):
                 rows["k5"].add(per_fwd, ms, pms, nbytes, ops, F32_OPS, lms,
                                path=path)
             print(f"  K5 {path} {shape} x{per_fwd}: {ms:.4f} ms "
-                  f"({nbytes / ms / 1e6:.0f} GB/s; events {ems:.4f}; exact "
-                  f"route {exact_ms:.4f}, plan "
+                  f"({nbytes / ms / 1e6:.0f} GB/s; events {ems:.4f}; bf16 "
+                  f"out {bf16_ms:.4f}; exact route {exact_ms:.4f}, plan "
                   f"{tuple(k5.plan(*shape[1:]))}), "
                   f"plain {pms:.4f}, "
                   f"F.conv2d(groups=C) {lms:.4f}, grouped conv + K3 "
@@ -1059,8 +1041,9 @@ def main() -> int:
             nbytes = (npx * c * 2 * (2 + int(er) + int(eq))
                       + 2 * (2 * c * m + 9 * m * m) + 8 * (2 * m + c))
             ops = 2 * npx * (2 * c * m + 9 * m * m)
-            # the route K6 replaces at this site: K2 conv1 (quantized
-            # input), the f32 copy + cuDNN 3x3, K3, K2 conv3
+            # the route K6 replaces at this site, as the chain-off
+            # executor runs it: K2 conv1 (quantized input, writing the f32
+            # operand), cuDNN 3x3, K3, K2 conv3
             xq, idn, w1, w2, w3, a1, b1, a2, b2, a3, b3 = args
             conv2 = ConvKxK(w=w2.permute(3, 2, 0, 1).float().contiguous(
                 memory_format=torch.channels_last), scale=a2, shift=b2,
@@ -1068,7 +1051,8 @@ def main() -> int:
 
             def route():
                 y1q = k2.qmm_fused(xq.reshape(-1, c), w1, a1, b1, relu=True,
-                                   quant_out_recip=rec["recip2"])
+                                   quant_out_recip=rec["recip2"],
+                                   out_dtype=torch.float32)
                 _, y2q = k3.bn_epilogue(
                     _conv_f32(y1q.reshape(n, h, w, m), conv2), a2, b2,
                     relu=True, emit_raw=False, quant_recip=rec["recip3"])
@@ -1444,50 +1428,14 @@ def main() -> int:
         assert (np.argmax(got, -1) == np.argmax(want, -1))[decisive].all()
         throughputs(eng, fp32, "mobilenetv1_module_packed_k4", (B,))
 
-    def where_the_time_goes(eng, label, fwd=3):
-        """Device time per forward at batch 64 by kernel, from
-        torch.profiler, and the share of the wall time with no kernel
-        running.  A measurement, not a check: a profiler that shows no
-        device time is reported as such."""
-        from torch.profiler import ProfilerActivity, profile
-
+    def where_the_time_goes(eng, label):
+        """Device time per forward at batch 64 by kernel, the idle share
+        and the bf16 -> f32 copies, from torch.profiler
+        (``profiling.print_forward_profile``)."""
         x = torch.from_numpy(np.random.default_rng(1).standard_normal(
             (B, 224, 224, 3)).astype(np.float32)).to(dev)
-        eng.forward(x)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            start.record()
-            for _ in range(fwd):
-                eng.forward(x)
-            end.record()
-            torch.cuda.synchronize()
-        wall = start.elapsed_time(end) / fwd
-        from torch.autograd import DeviceType
-
-        # kernel events only: operator events repeat their kernels' time
-        evs = [(e.key, getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0)) / 1e3
-                / fwd, e.count / fwd) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-        evs = sorted((e for e in evs if e[1] > 0), key=lambda e: -e[1])
-        busy = sum(e[1] for e in evs)
-        if not evs:
-            print("  profiler: no device time recorded (not measured)")
-            return
-        idle = 1 - busy / wall
-        if idle < -0.01:  # one stream: kernels cannot outlast the wall
-            print(f"  profile miscounted: kernels {busy:.3f} ms exceed wall "
-                  f"{wall:.3f} ms per forward; idle share not measured",
-                  flush=True)
-            return
-        print(f"  profile {label}, per forward at batch {B}: wall "
-              f"{wall:.3f} ms, "
-              f"kernels {busy:.3f} ms, idle share {idle:.3f}", flush=True)
-        for key, ms, n in evs[:14]:
-            print(f"    {ms:8.3f} ms  x{n:5.1f}  {key[:100]}", flush=True)
+        print(f"  profile {label}:", flush=True)
+        print_forward_profile(lambda: eng.forward(x), B)
 
     k1_phase()
     k2_phase()

@@ -73,17 +73,8 @@ struct Args {
   bool out_f32, relu, quant, nonneg, vec;
 };
 
-__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
-  float d;
-  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(d) : "f"(a), "f"(b), "f"(c));
-  return d;
-}
-
-__device__ __forceinline__ float mul_ftz(float a, float b) {
-  float d;
-  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
+using slfp::fma_ftz;
+using slfp::mul_ftz;
 
 // one tap: acc + x * w, rounded once, subnormals flushed (x flushed at its
 // load on the exact route)

@@ -10,8 +10,13 @@
 // the ones ops/sfp.py derives.
 //
 // Subnormal floats are flushed to a zero of the same sign around every float
-// operation, explicitly, as XLA does on the CPU and TPU; no build flag is
-// relied on for it.
+// operation, as XLA does on the CPU and TPU; no build flag is relied on for
+// it.  The exact route flushes explicitly (ftz() around each operation).
+// The FTZ route folds the flushes into the .ftz forms of the instructions
+// (fma_ftz, mul_ftz, add_ftz), which flush every operand and the result:
+// the same bits wherever the operands the exact route does not flush (an
+// affine's scale and shift, a reciprocal, a depthwise tap) are not
+// subnormal, which the wrappers check before they take it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,6 +56,24 @@ __device__ __forceinline__ float ftz(float v) {
   return (__float_as_int(v) & 0x7FFFFFFF) < 0x00800000 ? v * 0.f : v;
 }
 
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  float d;
+  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(d) : "f"(a), "f"(b), "f"(c));
+  return d;
+}
+
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float d;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float d;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 // the quantize of an already scaled and flushed xs = ftz(x * recip)
 __device__ __forceinline__ uint16_t act_bf16_bits_scaled(float xs, int qbit,
                                                          bool nonneg) {
@@ -81,6 +104,12 @@ __device__ __forceinline__ uint16_t act_bf16_bits(float x, float recip,
   return act_bf16_bits_scaled(ftz(__fmul_rn(ftz(x), recip)), qbit, nonneg);
 }
 
+// x * recip flushed, on either route (kFtz: recip not subnormal)
+template <bool kFtz>
+__device__ __forceinline__ float scaled(float x, float recip) {
+  return kFtz ? mul_ftz(x, recip) : ftz(__fmul_rn(ftz(x), recip));
+}
+
 // SLFP<3,4> activation quantize, float32 result (slfp34_act_bits)
 __device__ __forceinline__ float slfp34_act_f32(float x) {
   const int32_t bits = __float_as_int(x);
@@ -105,6 +134,17 @@ __device__ __forceinline__ float epilogue_value(float y, float s, float t,
   float v = ftz(__fmaf_rn(ftz(y), s, t));
   if (has_res) v = ftz(__fadd_rn(v, ftz(r)));
   if (relu) v = v > 0.f ? v : 0.f;
+  return v;
+}
+
+// the same with its flags fixed at compile time, on either route (kFtz: s
+// and t not subnormal)
+template <bool kFtz, bool kRes, bool kRelu>
+__device__ __forceinline__ float epilogue_value(float y, float s, float t,
+                                                float r) {
+  float v = kFtz ? fma_ftz(y, s, t) : ftz(__fmaf_rn(ftz(y), s, t));
+  if (kRes) v = kFtz ? add_ftz(v, r) : ftz(__fadd_rn(v, ftz(r)));
+  if (kRelu) v = v > 0.f ? v : 0.f;
   return v;
 }
 

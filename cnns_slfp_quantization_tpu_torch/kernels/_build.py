@@ -35,7 +35,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # launch's cudaGetLastError() as an int)
 SIGNATURES = {
     "quantize": {
-        "slfp_quantize_bf16": (_P, _I, _P, _LL, _F, _I, _I, _I, _P),
+        # x, x_bf16, out, out_f32, n, recip, qbit, nonneg, ftz, vec, stream
+        "slfp_quantize": (_P, _I, _P, _I, _LL, _F, _I, _I, _I, _I, _P),
         "slfp_quantize_f32form": (_P, _I, _P, _LL, _I, _P),
     },
     "qmm": {
@@ -45,7 +46,10 @@ SIGNATURES = {
                      _F, _I, _I, _F) + (_I,) * 5 + (_P, _P),
     },
     "epilogue": {
-        "slfp_epilogue": (_P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P),
+        # y, identity, s, t, raw, q, q_f32, rows, C, recip, relu, ftz, vec,
+        # stream
+        "slfp_epilogue": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _F, _I, _I,
+                          _I, _P),
     },
     "fused_matmul": {
         "slfp_fused_matmul": (_P, _I, _LL, _I, _LL, _LL, _LL, _LL, _P, _I,

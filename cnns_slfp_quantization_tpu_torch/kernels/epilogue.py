@@ -11,7 +11,11 @@ cuDNN convolution or a plain matmul with an f32 output ``y`` it computes
 and writes raw, q or both (the dual form) in one pass.  When raw is written,
 q quantizes the bf16-rounded raw value (``dual_epilogue``'s semantics);
 when only q is written, it quantizes the f32 value (``xla_post`` followed by
-``quantize_act_pass``).
+``quantize_act_pass``).  q is bf16, or (``q_dtype=torch.float32``) the same
+bf16 values widened exactly: the operand cuDNN and the plain matmuls read,
+with no copy in between.  The kernel folds its flushes into FTZ
+instructions when :func:`ftz_route` allows it; the executors decide that
+once, when they lay out their weights, and pass it as ``ftz``.
 """
 
 from __future__ import annotations
@@ -64,53 +68,75 @@ def epilogue_value_plain(y, s, t, identity: Optional[torch.Tensor],
 
 
 def bn_epilogue_plain(y, scale, shift, *, identity=None, relu=True,
-                      emit_raw=True, quant_recip=None):
+                      emit_raw=True, quant_recip=None,
+                      q_dtype=torch.bfloat16):
     v = epilogue_value_plain(y, scale, shift, identity, relu)
     raw = v.to(torch.bfloat16)
     q = None
     if quant_recip is not None:
-        q = sfp.act_bf16_bits(raw if emit_raw else v, quant_recip, 8, relu)
+        q = sfp.act_bf16_bits(raw if emit_raw else v, quant_recip, 8,
+                              relu).to(q_dtype)
     return (raw if emit_raw else None), q
+
+
+def ftz_route(scale: torch.Tensor, shift: torch.Tensor,
+              recips=()) -> bool:
+    """Whether K3 may fold its flushes into FTZ instructions and still give
+    the exact route's bits: no element of ``scale`` or ``shift`` and none
+    of the reciprocals ``recips`` is subnormal.  Reads the tensors (a
+    device sync on the card)."""
+    return (_build.no_subnormal(scale) and _build.no_subnormal(shift)
+            and all(_build.normal_scalar(r) for r in recips))
 
 
 def bn_epilogue(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
                 identity: Optional[torch.Tensor] = None, relu: bool = True,
-                emit_raw: bool = True, quant_recip: Optional[float] = None):
+                emit_raw: bool = True, quant_recip: Optional[float] = None,
+                q_dtype: torch.dtype = torch.bfloat16,
+                ftz: Optional[bool] = None):
     """(raw, q) for y f32 [..., C]; either is None when not asked for.
 
     identity: bf16 [..., C] residual; scale/shift: f32 [C];
-    quant_recip: 1/Ka of the consumer, None for no quantized output.
+    quant_recip: 1/Ka of the consumer, None for no quantized output;
+    q_dtype: bf16, or float32 holding the bf16 values;
+    ftz: the route, :func:`ftz_route` of these operands as the caller
+    decided it once; None decides it here (a device sync).
     """
     if not emit_raw and quant_recip is None:
         raise ValueError("bn_epilogue: nothing to emit")
     if y.device.type == "cpu":
         return bn_epilogue_plain(y, scale, shift, identity=identity,
                                  relu=relu, emit_raw=emit_raw,
-                                 quant_recip=quant_recip)
+                                 quant_recip=quant_recip, q_dtype=q_dtype)
     c = y.shape[-1]
     if (y.dtype != torch.float32 or scale.dtype != torch.float32
             or shift.dtype != torch.float32 or scale.shape != (c,)
             or shift.shape != (c,)
+            or q_dtype not in (torch.bfloat16, torch.float32)
             or (identity is not None and (identity.dtype != torch.bfloat16
                                           or identity.shape != y.shape))):
         raise ValueError("bn_epilogue: y f32 [..., C], scale/shift f32 [C], "
-                         "identity bf16 like y")
+                         "identity bf16 like y, q bf16 or f32")
     _build.check_cuda(y, scale, shift, identity)
+    if ftz is None:
+        ftz = ftz_route(scale, shift, () if quant_recip is None
+                        else (quant_recip,))
     raw = (torch.empty(y.shape, dtype=torch.bfloat16, device=y.device)
            if emit_raw else None)
-    q = (torch.empty(y.shape, dtype=torch.bfloat16, device=y.device)
+    q = (torch.empty(y.shape, dtype=q_dtype, device=y.device)
          if quant_recip is not None else None)
-    vec = c % 8 == 0 and _build.aligned16(y, scale, shift, identity, raw, q)
+    vec = c % 4 == 0 and _build.aligned16(y, scale, shift, identity, raw, q)
     _build.launch(
         "epilogue", "slfp_epilogue", y.data_ptr(),
         None if identity is None else identity.data_ptr(),
         scale.data_ptr(), shift.data_ptr(),
         None if raw is None else raw.data_ptr(),
-        None if q is None else q.data_ptr(),
+        None if q is None else q.data_ptr(), int(q_dtype == torch.float32),
         y.numel() // max(c, 1), c,
         float(np.float32(quant_recip if quant_recip is not None else 1.0)),
-        int(relu), int(vec), _build.stream_of(y))
+        int(relu), int(ftz), int(vec), _build.stream_of(y))
     bn_epilogue.launches += 1
+    bn_epilogue.ftz_launches += int(ftz)
     if raw is not None and q is not None:
         bn_epilogue.dual_launches += 1
     return raw, q
@@ -118,3 +144,4 @@ def bn_epilogue(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
 
 bn_epilogue.launches = 0
 bn_epilogue.dual_launches = 0  # of those, the dual form (raw and q)
+bn_epilogue.ftz_launches = 0   # of those, the FTZ route

@@ -26,10 +26,13 @@ from cnns_slfp_quantization_tpu_torch.ops import sfp
 
 
 def quantize_act_pass(x: torch.Tensor, recip: float, *, nonneg: bool = True,
-                      qbit: int = 8) -> torch.Tensor:
+                      qbit: int = 8,
+                      out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The standalone scale + quantize + bf16 pass (K1), as the JAX
-    ``quantize_act_pass`` names it."""
-    return act_quantize(x, recip, qbit=qbit, nonneg=nonneg)
+    ``quantize_act_pass`` names it; ``out_dtype=torch.float32`` for a
+    consumer that reads float32 (cuDNN, a plain matmul)."""
+    return act_quantize(x, recip, qbit=qbit, nonneg=nonneg,
+                        out_dtype=out_dtype)
 
 
 def qmm_plain(x, w, scale, shift, *, residual=None, relu=False,

@@ -19,31 +19,45 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def act_quantize_plain(x: torch.Tensor, recip: float, *, qbit: int = 8,
-                       nonneg: bool = True) -> torch.Tensor:
-    return sfp.act_bf16_bits(x, recip, qbit, nonneg)
+                       nonneg: bool = True,
+                       out_dtype: torch.dtype = torch.bfloat16
+                       ) -> torch.Tensor:
+    return sfp.act_bf16_bits(x, recip, qbit, nonneg).to(out_dtype)
 
 
 def act_quantize(x: torch.Tensor, recip: float, *, qbit: int = 8,
-                 nonneg: bool = True) -> torch.Tensor:
+                 nonneg: bool = True,
+                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """``bf16(quantize_act(x * recip, qbit))`` for f32 or bf16 x, any shape.
 
     ``nonneg=True`` skips sign handling (x >= 0 and never -0.0).
+    ``out_dtype=torch.float32`` writes the same bf16 values widened
+    exactly: the operand cuDNN and the plain matmuls read, with no copy in
+    between.  The kernel takes its FTZ route when ``recip`` is not
+    subnormal (``ftz_launches`` counts those launches), else the exact one.
     """
     if x.device.type == "cpu":
-        return act_quantize_plain(x, recip, qbit=qbit, nonneg=nonneg)
-    if x.dtype not in _DTYPES or qbit not in (7, 8):
-        raise ValueError(f"act_quantize: dtype {x.dtype}, qbit {qbit}")
+        return act_quantize_plain(x, recip, qbit=qbit, nonneg=nonneg,
+                                  out_dtype=out_dtype)
+    if (x.dtype not in _DTYPES or out_dtype not in _DTYPES
+            or qbit not in (7, 8)):
+        raise ValueError(f"act_quantize: dtype {x.dtype} -> {out_dtype}, "
+                         f"qbit {qbit}")
     _build.check_cuda(x)
-    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    _build.launch("quantize", "slfp_quantize_bf16", x.data_ptr(),
-                  int(x.dtype == torch.bfloat16), out.data_ptr(), x.numel(),
-                  float(np.float32(recip)), qbit, int(nonneg),
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    ftz = _build.normal_scalar(recip)
+    _build.launch("quantize", "slfp_quantize", x.data_ptr(),
+                  int(x.dtype == torch.bfloat16), out.data_ptr(),
+                  int(out_dtype == torch.float32), x.numel(),
+                  float(np.float32(recip)), qbit, int(nonneg), int(ftz),
                   int(_build.aligned16(x, out)), _build.stream_of(x))
     act_quantize.launches += 1
+    act_quantize.ftz_launches += int(ftz)
     return out
 
 
 act_quantize.launches = 0
+act_quantize.ftz_launches = 0   # of the launches, those on the FTZ route
 
 
 def slfp34_act_quantize_plain(x: torch.Tensor) -> torch.Tensor:

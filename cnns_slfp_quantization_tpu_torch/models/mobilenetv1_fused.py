@@ -22,6 +22,11 @@ quantized input:
   head       f32 mean -> ImageNet: f32 ``x @ W + b``; CIFAR: K1 -> f32
              matmul -> ``(y + b/kaw) * kaw`` in bf16
 
+Each quantized activation is written in the type its consumer reads:
+float32 holding the bf16 values for cuDNN and the matmuls (the stem's K1,
+K5, every K3 whose next conv is cuDNN's), bf16 for K5; no copy widens one
+in between.
+
 ``dw="torch"`` is JAX's own placement (XLA's grouped conv,
 ``mobilenetv1_fused.py:72``); JAX reaches its depthwise kernel only from
 its A/B tool.  The convolutions and matmuls take float32 tensors that hold
@@ -50,6 +55,7 @@ from cnns_slfp_quantization_tpu_torch.models.resnet50_fused import (
     _bf16_values,
     _conv_f32,
     _flat,
+    _mm_f32,
     _s2d_stem,
     _s2d_weight,
     bn_fold,
@@ -71,7 +77,8 @@ class FusedWeights:
     dw: list               # per block: ConvKxK (grouped, OIHW) ...
     dw_taps: list          # ... and its taps [3, 3, C] float32, for K5
     dw_ftz: list           # ... and K5's route for them (k5.ftz_route)
-    pw: list               # per block: (w [Cin, Cout] f32, scale, shift)
+    pw: list               # per block: (w [Cin, Cout] f32, scale, shift,
+                           # K3's route)
     fc_w: torch.Tensor     # [1024, classes] float32 (bf16 values if quantized)
     fc_b: torch.Tensor     # bias, or float32(b) / float32(kaw) if quantized
     kaw_fc: Optional[torch.Tensor]   # float32 0-d, quantized classifier only
@@ -103,7 +110,10 @@ def prepare(model: MobileNetV1, *, device="cuda") -> FusedWeights:
             w=w.to(device).contiguous(memory_format=torch.channels_last),
             scale=vec(s), shift=vec(t),
             stride=conv.stride if stride is None else stride,
-            pad=conv.padding if pad is None else pad, groups=conv.groups)
+            pad=conv.padding if pad is None else pad, groups=conv.groups,
+            # K3's route, decided here once
+            ftz=k3.ftz_route(torch.from_numpy(s), torch.from_numpy(t),
+                             recips))
 
     stem = conv_kxk(0)
     stem_s2d = conv_kxk(0, w=_s2d_weight(stem.w.cpu()), stride=1, pad=0)
@@ -116,7 +126,8 @@ def prepare(model: MobileNetV1, *, device="cuda") -> FusedWeights:
         dw_ftz.append(k5.ftz_route(dw_taps[-1], c.scale, c.shift,
                                    recips[2 + 2 * b]))
         p = conv_kxk(2 + 2 * b)
-        pw.append((p.w[:, :, 0, 0].t().contiguous(), p.scale, p.shift))
+        pw.append((p.w[:, :, 0, 0].t().contiguous(), p.scale, p.shift,
+                   p.ftz))
     quant_fc = isinstance(model.fc, QuantDense)
     fc_b = model.fc.bias.detach().cpu().numpy().astype(np.float32)
     if quant_fc:
@@ -157,42 +168,56 @@ def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
 def _fused_apply(fw: FusedWeights, x: torch.Tensor, dw_kernel: bool,
                  s2d_stem: bool):
     rc = fw.recips
+    f32, bf16 = torch.float32, torch.bfloat16
+    last = len(DW_CONFIG) - 1
+
+    def dw_in(b):
+        """The type block b's depthwise conv reads: bf16 for K5, f32 for
+        cuDNN's grouped conv."""
+        return bf16 if dw_kernel and DW_CONFIG[b][2] == 1 else f32
+
     # --- stem: 3x3/s2/p1, signed input quantize ----------------------------
-    xq = act_quantize(x, rc[0], nonneg=False)
+    xq = act_quantize(x, rc[0], nonneg=False, out_dtype=f32)
     if s2d_stem:
         y = _s2d_stem(xq, fw.stem_s2d, 3, pad=1)
     else:
         y = _conv_f32(xq, fw.stem)
     _, y = k3.bn_epilogue(y, fw.stem.scale, fw.stem.shift, relu=True,
-                          emit_raw=False, quant_recip=rc[1])
+                          emit_raw=False, quant_recip=rc[1], q_dtype=dw_in(0),
+                          ftz=fw.stem.ftz)
 
     # --- 13 depthwise-separable blocks -------------------------------------
-    last = len(DW_CONFIG) - 1
-    for b, (_, _, stride) in enumerate(DW_CONFIG):
+    for b in range(len(DW_CONFIG)):
         i_dw, i_pw = 1 + 2 * b, 2 + 2 * b
         d = fw.dw[b]
-        if stride == 1 and dw_kernel:
+        # the depthwise conv's quantized output is the pointwise matmul's
+        # f32 operand
+        if dw_in(b) == bf16:
             y = k5.dw3x3(y, fw.dw_taps[b], scale=d.scale, shift=d.shift,
-                         relu=True, quant_out_recip=rc[i_pw],
+                         relu=True, quant_out_recip=rc[i_pw], out_dtype=f32,
                          ftz=fw.dw_ftz[b])
         else:
             _, y = k3.bn_epilogue(_conv_f32(y, d), d.scale, d.shift,
                                   relu=True, emit_raw=False,
-                                  quant_recip=rc[i_pw])
-        w, s, t = fw.pw[b]
+                                  quant_recip=rc[i_pw], q_dtype=f32,
+                                  ftz=d.ftz)
+        w, s, t, ftz = fw.pw[b]
         lead = y.shape[:-1]
-        z = (_flat(y).to(torch.float32) @ w).reshape(*lead, w.shape[1])
+        z = _mm_f32(_flat(y), w).reshape(*lead, w.shape[1])
         # the classifier quantizes after pooling (the reference pools raw
         # activations), so the last block writes raw bf16
-        raw, q = k3.bn_epilogue(z, s, t, relu=True, emit_raw=b == last,
-                                quant_recip=None if b == last else rc[i_dw + 2])
-        y = raw if b == last else q
+        if b == last:
+            y, _ = k3.bn_epilogue(z, s, t, relu=True, ftz=ftz)
+        else:
+            _, y = k3.bn_epilogue(z, s, t, relu=True, emit_raw=False,
+                                  quant_recip=rc[i_dw + 2],
+                                  q_dtype=dw_in(b + 1), ftz=ftz)
 
     # --- head: mean over H and W, then the classifier ----------------------
     xa = torch.mean(y.to(torch.float32), dim=(1, 2))
     if not fw.quant_classifier:
         with full_f32_matmul():
             return xa @ fw.fc_w + fw.fc_b
-    xq = act_quantize(xa, rc[FC_ID])
-    y = xq.to(torch.float32) @ fw.fc_w
+    xq = act_quantize(xa, rc[FC_ID], out_dtype=f32)
+    y = _mm_f32(xq, fw.fc_w)
     return ((y + fw.fc_b) * fw.kaw_fc).to(torch.bfloat16)

@@ -12,10 +12,11 @@ then runs the network on NHWC activations:
   stem     K1 signed quantize -> s2d 4x4 conv (cuDNN, f32 out) -> K3 BN+ReLU
            -> max pool -> K1 quantize shared by conv1 and the downsample
   block    conv1 1x1: K2 (quantize prologue when its input is raw, BN, ReLU,
-           quantize for conv2); conv2 3x3: cuDNN f32 out -> K3 (q only);
-           conv3 1x1: K2 (BN, +identity, ReLU; at a stage end also the next
-           stage's quantize); downsample: cuDNN f32 out -> K3 (raw, no ReLU)
-  head     f32 mean -> K1 -> f32 matmul -> (y + b/kaw) * kaw
+           quantize for conv2, written as f32); conv2 3x3: cuDNN f32 out ->
+           K3 (q only); conv3 1x1: K2 (BN, +identity, ReLU; at a stage end
+           also the next stage's quantize); downsample: cuDNN f32 out -> K3
+           (raw, no ReLU)
+  head     f32 mean -> K1 (f32 out) -> f32 matmul -> (y + b/kaw) * kaw
 
 ``policy`` chooses per 1x1 site between the hand kernel K2 (``"kernel"``,
 JAX ``"pallas"``) and a plain f32 matmul followed by K3 (``"torch"``, JAX
@@ -35,7 +36,15 @@ The spatial convolutions and the plain matmuls take float32 tensors that
 hold bf16 values: every product is exact and the sums are float32, which is
 JAX's ``preferred_element_type=float32`` (a bf16 ``F.conv2d`` would round
 its output to bf16).  :func:`backend_flags` says why TF32 is exact here;
-the executor sets those flags around its own calls only.
+the executor sets those flags around its own calls only.  Each kernel
+writes its output in the type its consumer reads: float32 (the bf16
+values widened exactly) for cuDNN and the plain matmuls, bf16 for K2 and
+K6, so no copy widens it in between.  A bf16 tensor reaches cuDNN only
+where the same quantized tensor also feeds a kernel that reads bf16 alone:
+the stage inputs, which K2's conv1 reads too (or K6's output, which it
+writes in bf16 only).  The K3 epilogues take their FTZ route when
+:func:`prepare` finds no subnormal scale, shift or reciprocal
+(``ConvKxK.ftz``).
 """
 
 from __future__ import annotations
@@ -80,6 +89,7 @@ class Conv1x1:
                            # uint8 codes), as K2 reads it fastest
     scale: torch.Tensor    # [N] f32, BN fold with Ka*Kw
     shift: torch.Tensor    # [N] f32
+    ftz: Optional[bool] = None   # K3's route after a plain matmul
 
 
 @dataclasses.dataclass
@@ -90,6 +100,9 @@ class ConvKxK:
     stride: int
     pad: int
     groups: int = 1
+    # K3's route for this conv's epilogue (k3.ftz_route), decided when the
+    # weights are laid out; None decides it at each call (a device sync)
+    ftz: Optional[bool] = None
 
 
 @dataclasses.dataclass
@@ -177,13 +190,20 @@ def prepare(model: ResNet50, *, device="cuda") -> FusedWeights:
     def vec(a):
         return torch.from_numpy(a).to(device)
 
+    recips = [sfp.recip_of(a) for a in ka]
+
+    def ftz(s, t):
+        """K3's route for an epilogue with this affine, decided on the
+        host arrays (every reciprocal a K3 may quantize by included)."""
+        return k3.ftz_route(torch.from_numpy(s), torch.from_numpy(t), recips)
+
     def conv1x1(conv, bn, sid):
         s, t = bn_fold(bn, kaw(sid))
         w = conv.weight.detach()                      # [N, K, 1, 1]
         if w.dtype != torch.uint8:                    # K2 decodes codes
             w = _bf16_values(w)
         return Conv1x1(w=w[:, :, 0, 0].contiguous().to(device).t(),
-                       scale=vec(s), shift=vec(t))
+                       scale=vec(s), shift=vec(t), ftz=ftz(s, t))
 
     def conv_kxk(conv, bn, sid, w=None, stride=None, pad=None):
         s, t = bn_fold(bn, kaw(sid))
@@ -192,7 +212,7 @@ def prepare(model: ResNet50, *, device="cuda") -> FusedWeights:
             w=w.to(device).contiguous(memory_format=torch.channels_last),
             scale=vec(s), shift=vec(t),
             stride=conv.stride if stride is None else stride,
-            pad=conv.padding if pad is None else pad)
+            pad=conv.padding if pad is None else pad, ftz=ftz(s, t))
 
     stem = conv_kxk(model.conv1, model.bn1, 0,
                     w=_s2d_weight(_bf16_values(model.conv1.weight).float()),
@@ -212,15 +232,21 @@ def prepare(model: ResNet50, *, device="cuda") -> FusedWeights:
         stem=stem, stem_k=model.conv1.weight.shape[-1], blocks=blocks,
         fc_w=_bf16_values(model.fc.weight).float().t().contiguous().to(device),
         fc_b_over_kaw=vec((fc_b / k53).astype(np.float32)),
-        kaw53=torch.tensor(k53, device=device),
-        recips=[sfp.recip_of(a) for a in ka])
+        kaw53=torch.tensor(k53, device=device), recips=recips)
 
 
 def _conv_f32(xq: torch.Tensor, c: ConvKxK) -> torch.Tensor:
-    """NHWC bf16 values -> NHWC float32 conv output (cuDNN, channels last)."""
+    """NHWC bf16 values (as float32, or bf16 widened here) -> NHWC float32
+    conv output (cuDNN, channels last)."""
     x = xq.to(torch.float32).permute(0, 3, 1, 2)
     y = F.conv2d(x, c.w, stride=c.stride, padding=c.pad, groups=c.groups)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _mm_f32(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[M, K] bf16 values (as float32, or bf16 widened here) @ [K, N]
+    float32: a plain matmul with float32 sums."""
+    return xq.to(torch.float32) @ w
 
 
 def _s2d_stem(xq: torch.Tensor, c: ConvKxK, k: int, pad: int = 3):
@@ -268,6 +294,9 @@ def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
 
 def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict):
     rc = fw.recips
+    f32, bf16 = torch.float32, torch.bfloat16
+    # conv1 as a plain matmul reads f32; K2 and K6 read bf16
+    c1_dt = f32 if pol["conv1"] == "torch" else bf16
 
     def mm(xf, conv: Conv1x1, **kw):
         """1x1 conv as K2 on [M, K]."""
@@ -278,13 +307,17 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict):
     def mm_f32(xq, conv: Conv1x1):
         """1x1 conv as a plain f32 matmul of bf16 values."""
         lead = xq.shape[:-1]
-        y = _flat(xq).to(torch.float32) @ _bf16_values(conv.w).float()
+        y = _mm_f32(_flat(xq), _bf16_values(conv.w).float())
         return y.reshape(*lead, y.shape[-1])
 
     # --- stem --------------------------------------------------------------
-    xq = k2.quantize_act_pass(x, rc[0], nonneg=False)
+    # K1 writes the f32 its conv reads: faster, if by 0.1%, in every turn on
+    # the H100 than bf16 widened after the space-to-depth layout copies,
+    # which then move half the bytes (utils/bench_epilogue.py --stem)
+    xq = k2.quantize_act_pass(x, rc[0], nonneg=False, out_dtype=f32)
     y = _s2d_stem(xq, fw.stem, fw.stem_k)
-    y, _ = k3.bn_epilogue(y, fw.stem.scale, fw.stem.shift, relu=True)
+    y, _ = k3.bn_epilogue(y, fw.stem.scale, fw.stem.shift, relu=True,
+                          ftz=fw.stem.ftz)
     y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, 1).permute(
         0, 2, 3, 1).contiguous()
 
@@ -300,11 +333,13 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict):
         else:
             qn = sid + 4
         if b == 0:
+            # the stage input feeds the downsample conv (cuDNN) and conv1:
+            # f32 only where conv1 reads f32 too
             xq_sh = xr_q if xr_q is not None else k2.quantize_act_pass(
-                xr_raw, rc[sid + 1])
+                xr_raw, rc[sid + 1], out_dtype=c1_dt)
             d = blk["down"]
             identity, _ = k3.bn_epilogue(_conv_f32(xq_sh, d), d.scale,
-                                         d.shift, relu=False)
+                                         d.shift, relu=False, ftz=d.ftz)
             c1_in, c1_recip = xq_sh, None
         else:
             identity = xr_raw
@@ -333,45 +368,54 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict):
                 xr_raw, xr_q = raw, q
             continue
 
-        # conv1 1x1: (quantize) -> mm -> BN+ReLU -> quantize for conv2
+        # conv1 1x1: (quantize) -> mm -> BN+ReLU -> quantize for conv2,
+        # written as the f32 operand cuDNN's conv2 reads
         if pol["conv1"] == "kernel":
             y1q = mm(c1_in, c1, relu=True, quant_in_recip=c1_recip,
-                     quant_out_recip=rc[sid + 2])
+                     quant_out_recip=rc[sid + 2], out_dtype=f32)
         else:
             c1q = (c1_in if c1_recip is None
-                   else k2.quantize_act_pass(c1_in, c1_recip))
+                   else k2.quantize_act_pass(c1_in, c1_recip, out_dtype=f32))
             _, y1q = k3.bn_epilogue(mm_f32(c1q, c1), c1.scale, c1.shift,
                                     relu=True, emit_raw=False,
-                                    quant_recip=rc[sid + 2])
+                                    quant_recip=rc[sid + 2], q_dtype=f32,
+                                    ftz=c1.ftz)
 
         # conv2 3x3 (stride): cuDNN, then BN+ReLU+quantize from f32
-        _, y2q = k3.bn_epilogue(_conv_f32(y1q, c2), c2.scale, c2.shift,
-                                relu=True, emit_raw=False,
-                                quant_recip=rc[sid + 3])
+        _, y2q = k3.bn_epilogue(
+            _conv_f32(y1q, c2), c2.scale, c2.shift, relu=True,
+            emit_raw=False, quant_recip=rc[sid + 3],
+            q_dtype=f32 if pol["conv3"] == "torch" else bf16, ftz=c2.ftz)
 
-        # conv3 1x1: mm -> BN -> +identity -> ReLU -> block output
+        # conv3 1x1: mm -> BN -> +identity -> ReLU -> block output; a
+        # quantized output feeds the next conv1 (and at a stage end the
+        # downsample conv), or K6 where the next block is on the chain
         if pol["conv3"] == "kernel":
+            end_q = last and qn is not None
             xr_raw = mm(y2q, c3, relu=True, residual=_flat(identity),
-                        quant_out_recip=(rc[qn] if last and qn is not None
-                                         else None))
-            xr_q = xr_raw if last and qn is not None else None
+                        quant_out_recip=rc[qn] if end_q else None,
+                        out_dtype=c1_dt if end_q else bf16)
+            xr_q = xr_raw if end_q else None
         else:
             y3 = mm_f32(y2q, c3)
             if last:
                 raw, q = k3.bn_epilogue(
                     y3, c3.scale, c3.shift, identity=identity, relu=True,
                     emit_raw=qn is None,
-                    quant_recip=rc[qn] if qn is not None else None)
+                    quant_recip=rc[qn] if qn is not None else None,
+                    q_dtype=c1_dt, ftz=c3.ftz)
                 xr_raw = q if qn is not None else raw
                 xr_q = q
             else:
                 xr_raw, xr_q = k3.bn_epilogue(  # the dual form
                     y3, c3.scale, c3.shift, identity=identity, relu=True,
-                    quant_recip=rc[qn])
+                    quant_recip=rc[qn],
+                    q_dtype=bf16 if s_idx in pol["chain"] else c1_dt,
+                    ftz=c3.ftz)
 
     # --- head: global average pool + quantized FC --------------------------
     xa = torch.mean(xr_raw.to(torch.float32), dim=(1, 2))
-    xq = k2.quantize_act_pass(xa, rc[53])
-    y = xq.to(torch.float32) @ fw.fc_w
+    xq = k2.quantize_act_pass(xa, rc[53], out_dtype=f32)
+    y = _mm_f32(xq, fw.fc_w)
     y = (y + fw.fc_b_over_kaw) * fw.kaw53
     return y.to(torch.bfloat16)

@@ -106,23 +106,29 @@ class _QuantBase(nn.Module):
         return sfp.unpack_slfp34(w) if w.dtype == torch.uint8 else w
 
     def input_q(self, x: torch.Tensor) -> torch.Tensor:
+        """``Q_act(x / Ka)`` as the float32 operand cuDNN and the matmuls
+        read, holding compute-dtype values."""
         if self.compute_dtype == torch.bfloat16 and self.qbit in (7, 8):
-            # K1 on the card, its plain version on the CPU
-            args = dict(qbit=self.qbit, nonneg=self.nonneg_input)
+            # K1 on the card, its plain version on the CPU; it writes the
+            # bf16 values as float32 itself, so no copy widens them
+            args = dict(qbit=self.qbit, nonneg=self.nonneg_input,
+                        out_dtype=torch.float32)
             recip = sfp.recip_of(self.ka)
             if x.dim() == 4:
                 return act_quantize(_nhwc(x), recip, **args).permute(
                     0, 3, 1, 2)
             return act_quantize(x.contiguous(), recip, **args)
-        return sfp.quantize_act(x * self.rka32, self.qbit)
-
-    def operands(self, x):
-        xq, wq = self.input_q(x), self.weight_q()
+        xq = sfp.quantize_act(x * self.rka32, self.qbit)
         if self.compute_dtype is not None:
             # bf16 values, float32 sums (the JAX preferred_element_type=f32)
             xq = xq.to(self.compute_dtype)
+        return xq.to(torch.float32)
+
+    def operands(self, x):
+        wq = self.weight_q()
+        if self.compute_dtype is not None:
             wq = wq.to(self.compute_dtype)
-        return xq.to(torch.float32), wq.to(torch.float32)
+        return self.input_q(x), wq.to(torch.float32)
 
     def rescale(self, y: torch.Tensor) -> torch.Tensor:
         if self.bias is not None:

@@ -66,11 +66,13 @@ def k2_sites(batch: int = B):
 def k2_flags(rc):
     """{site: qmm_fused flags} of the executor's K2 sites, given the
     reciprocals of ResNet-50's activation scales (``rc``); ``residual:
-    True`` stands for a bf16 [M, N] residual."""
+    True`` stands for a bf16 [M, N] residual, ``out_f32: True`` for
+    ``out_dtype=torch.float32`` (conv1 writes the operand cuDNN's conv2
+    reads)."""
     return {
-        "c1_b0": dict(relu=True, quant_out_recip=rc[2]),
+        "c1_b0": dict(relu=True, quant_out_recip=rc[2], out_f32=True),
         "c1_mid": dict(relu=True, quant_in_recip=rc[4],
-                       quant_out_recip=rc[5]),
+                       quant_out_recip=rc[5], out_f32=True),
         "c3_mid": dict(relu=True, residual=True),
         "c3_end": dict(relu=True, residual=True, quant_out_recip=rc[12]),
         "c3_last": dict(relu=True, residual=True),
@@ -235,6 +237,8 @@ def site_calls(dev):
         flags = dict(flag_sets[site])
         res = (randn(m, n, scale=2.0).to(torch.bfloat16)
                if flags.pop("residual", False) else None)
+        if flags.pop("out_f32", False):
+            flags["out_dtype"] = torch.float32
         x = randn(m, k, scale=3.0).abs().to(torch.bfloat16)
         if "quant_in_recip" not in flags:
             x = act_quantize_plain(x, 1.0)

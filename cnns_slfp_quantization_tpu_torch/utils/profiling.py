@@ -118,3 +118,61 @@ def kernel_ms(fn: Callable[[], object], *, reps: int = 5, runs: int = 3,
         f"{len(whole_runs(seen, floor))} of {len(seen)} runs (kernel events "
         f"per run: {[n for n, _ in seen]}; hand kernels per call: "
         f"{floor // reps})")
+
+
+def is_f32_copy(name: str) -> bool:
+    """A device kernel that widens to float32 (``.to(torch.float32)`` of a
+    bf16 tensor): PyTorch's casting copy, ``direct_copy_kernel_cuda`` on a
+    float result with a casting load, as its kernel name says."""
+    return ("direct_copy_kernel" in name and "LoadWithCast" in name
+            and "lambda(float)" in name)
+
+
+def print_forward_profile(fn: Callable[[], object], batch: int,
+                          calls: int = 3, top: int = 14) -> None:
+    """Print a forward ``fn`` under torch.profiler, per call after one
+    untimed call: wall time between CUDA events, kernel time, the share of
+    the wall with no kernel running, the bf16 -> float32 copies
+    (:func:`is_f32_copy`) and the ``top`` kernels.  A measurement, not a
+    check: a profile with no device time, or whose kernels outlast the
+    wall, is reported as not measured."""
+    torch = _require_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / calls
+    # kernel events only: operator events repeat their kernels' time
+    evs = sorted(((e.key, getattr(e, "self_device_time_total", getattr(
+        e, "self_cuda_time_total", 0)) / 1e3 / calls, e.count / calls)
+        for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=lambda e: -e[1])
+    evs = [e for e in evs if e[1] > 0]
+    if not evs:
+        print("  profiler: no device time recorded (not measured)",
+              flush=True)
+        return
+    busy = sum(ms for _, ms, _ in evs)
+    idle = 1 - busy / wall
+    if idle < -0.01:  # one stream: kernels cannot outlast the wall
+        print(f"  profile miscounted: kernels {busy:.3f} ms exceed wall "
+              f"{wall:.3f} ms per forward; idle share not measured",
+              flush=True)
+        return
+    copies = [(k, ms, n) for k, ms, n in evs if is_f32_copy(k)]
+    print(f"  per forward at batch {batch}: wall {wall:.3f} ms, kernels "
+          f"{busy:.3f} ms, idle share {idle:.3f}; bf16 -> f32 copies "
+          f"{sum(n for *_, n in copies):.1f} launches, "
+          f"{sum(ms for _, ms, _ in copies):.3f} ms", flush=True)
+    for key, ms, n in evs[:top]:
+        print(f"    {ms:8.3f} ms  x{n:5.1f}  {key[:100]}", flush=True)

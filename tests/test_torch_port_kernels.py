@@ -175,6 +175,66 @@ def test_relu_yields_positive_zero():
     assert (_bf16_bits(q_only)[0, [0, 1, 2, 4, 7]] == 0).all()
 
 
+@pytest.mark.parametrize("form", ["dual", "q_only"])
+def test_f32_q_form_is_pallas_output_widened(form):
+    """K3's f32 q form: JAX's dual epilogue (interpret mode) or xla_post +
+    quantize, widened to float32, bit for bit."""
+    y, ident, s, t = _epi_inputs(seed=3)
+    if form == "dual":
+        _, want = jepi.dual_epilogue(
+            jnp.asarray(y),
+            jnp.asarray(ident.float().numpy()).astype(jnp.bfloat16),
+            jnp.asarray(s), jnp.asarray(t), RECIP_A, interpret=True)
+    else:
+        want = jax.jit(lambda y, s, t: jsfp._act_bf16_bits(
+            jnp.maximum(y * s + t, 0.0), RECIP_A, 8, True))(y, s, t)
+    want = np.asarray(want).astype(np.float32)
+    raw, q = tepi.bn_epilogue(torch.from_numpy(y), torch.from_numpy(s),
+                              torch.from_numpy(t),
+                              identity=ident if form == "dual" else None,
+                              relu=True, emit_raw=form == "dual",
+                              quant_recip=RECIP_A, q_dtype=torch.float32)
+    assert q.dtype == torch.float32 and (raw is None) == (form != "dual")
+    np.testing.assert_array_equal(q.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nonneg", [True, False])
+def test_k1_f32_form_is_jax_act_bf16_bits_widened(dtype, nonneg):
+    """K1's f32 output form: JAX's ``_act_bf16_bits`` widened to float32,
+    bit for bit, from f32 and bf16 inputs."""
+    x = np.random.default_rng(4).standard_normal(4096).astype(np.float32) * 6
+    if nonneg:
+        x = np.abs(x)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(xt.float().numpy()).astype(getattr(jnp, dtype))
+    want = np.asarray(jax.jit(lambda v: jsfp._act_bf16_bits(
+        v, RECIP_B, 8, nonneg))(xj)).astype(np.float32)
+    got = tquant.act_quantize(xt, RECIP_B, nonneg=nonneg,
+                              out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize("subnormal", [None, "scale", "shift", "recip"])
+def test_ftz_route_only_without_subnormals(subnormal):
+    """K3's FTZ route flushes its scale, shift and reciprocal, which the
+    exact route does not: it is taken only when none is subnormal.  K1's
+    likewise only for a normal reciprocal."""
+    s, t = torch.full((16,), 0.5), torch.full((16,), -1.25)
+    recips = [RECIP_A, RECIP_B]
+    if subnormal == "scale":
+        s[3] = 1e-40
+    elif subnormal == "shift":
+        t[7] = -3e-39
+    elif subnormal == "recip":
+        recips.append(2e-39)
+    assert tepi.ftz_route(s, t, recips) == (subnormal is None)
+    assert _build.normal_scalar(recips[-1]) == (subnormal != "recip")
+
+
 def test_epilogue_needs_an_output():
     y, _, s, t = _epi_inputs(rows=8)
     with pytest.raises(ValueError):
@@ -292,8 +352,9 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     assert set(tk.launches().values()) == {0}
 
 
-@pytest.mark.parametrize("wrapper", ["act_quantize", "slfp34_act_quantize",
-                                     "qmm_fused", "bn_epilogue",
+@pytest.mark.parametrize("wrapper", ["act_quantize", "act_quantize_f32",
+                                     "slfp34_act_quantize", "qmm_fused",
+                                     "bn_epilogue", "bn_epilogue_f32",
                                      "fused_quant_matmul"])
 def test_non_cpu_tensors_never_take_the_plain_version(wrapper):
     """Only a CPU tensor runs the plain version: any other device goes to
@@ -303,6 +364,9 @@ def test_non_cpu_tensors_never_take_the_plain_version(wrapper):
     calls = {
         "act_quantize": lambda: tquant.act_quantize(
             torch.empty(64, **meta), RECIP_A),
+        "act_quantize_f32": lambda: tquant.act_quantize(
+            torch.empty(64, dtype=torch.bfloat16, **meta), RECIP_A,
+            out_dtype=torch.float32),
         "slfp34_act_quantize": lambda: tquant.slfp34_act_quantize(
             torch.empty(64, **meta)),
         "qmm_fused": lambda: tqmm.qmm_fused(
@@ -312,6 +376,10 @@ def test_non_cpu_tensors_never_take_the_plain_version(wrapper):
         "bn_epilogue": lambda: tepi.bn_epilogue(
             torch.empty(4, 8, **meta), torch.empty(8, **meta),
             torch.empty(8, **meta)),
+        "bn_epilogue_f32": lambda: tepi.bn_epilogue(
+            torch.empty(4, 8, **meta), torch.empty(8, **meta),
+            torch.empty(8, **meta), emit_raw=False, quant_recip=RECIP_A,
+            q_dtype=torch.float32, ftz=True),
         "fused_quant_matmul": lambda: tfm.fused_quant_matmul(
             torch.empty(16, 8, dtype=torch.bfloat16, **meta),
             torch.empty(8, 8, dtype=torch.uint8, **meta), ka=1.0, kw=1.0,

@@ -379,6 +379,31 @@ def test_dw_kernel_route_against_torch_route(monkeypatch, setups, executors,
     _agree(outs[0], outs[1], 0.995)
 
 
+@pytest.mark.parametrize("policy", POLICIES, ids=lambda p: p["dw"])
+@pytest.mark.parametrize("net", ["mobilenet", "mobilenetv1"])
+def test_cudnn_and_matmuls_read_f32_from_their_producers(monkeypatch,
+                                                         executors, net,
+                                                         policy):
+    """Every kernel writes the operand its consumer reads: no bf16 tensor
+    reaches cuDNN or a plain matmul, and K5 reads bf16."""
+    seen = []
+    conv, mm, dw = tfused._conv_f32, tfused._mm_f32, tdw.dw3x3
+    monkeypatch.setattr(tfused, "_conv_f32", lambda x, c: seen.append(
+        ("conv", x.dtype)) or conv(x, c))
+    monkeypatch.setattr(tfused, "_mm_f32", lambda x, w: seen.append(
+        ("mm", x.dtype)) or mm(x, w))
+    monkeypatch.setattr(tfused.k5, "dw3x3", lambda x, *a, **k: seen.append(
+        ("k5", x.dtype)) or dw(x, *a, **k))
+    with torch.no_grad():
+        tfused.fused_apply(executors(net)[0], torch.zeros(1, 32, 32, 3),
+                           policy=policy)
+    k5 = 9 if policy["dw"] == "kernel" else 0
+    want = [("conv", torch.float32)] * (1 + 13 - k5) + [
+        ("k5", torch.bfloat16)] * k5 + [("mm", torch.float32)] * (
+            13 + (net == "mobilenet"))
+    assert sorted(seen) == sorted(want)
+
+
 def test_fused_decides_k5_route_when_it_prepares(monkeypatch, executors):
     """``prepare`` decides K5's route once per site from its taps, affine
     and reciprocal, and every forward hands that decision to the wrapper

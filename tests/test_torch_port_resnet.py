@@ -233,6 +233,36 @@ def test_fused_packed_bit_equal_to_float_frozen(setup, port_fused,
                                   b.view(torch.int16).numpy())
 
 
+@pytest.mark.parametrize("policy", [
+    None, _NO_CHAIN, {"conv1": "torch", "conv3": "torch", **_NO_CHAIN}],
+    ids=["default", "chain_off", "torch"])
+def test_cudnn_and_matmuls_read_f32_from_their_producers(monkeypatch,
+                                                         port_fused, policy):
+    """Every kernel writes the operand its consumer reads: a bf16 tensor
+    reaches cuDNN or a plain matmul (to be widened there) only where K2
+    reads conv1's input too, at the 4 downsample inputs."""
+    fw = port_fused[0]
+    seen = []
+    conv, mm = tfused._conv_f32, tfused._mm_f32
+    monkeypatch.setattr(tfused, "_conv_f32", lambda x, c: seen.append(
+        (c, x.dtype)) or conv(x, c))
+    monkeypatch.setattr(tfused, "_mm_f32", lambda x, w: seen.append(
+        (None, x.dtype)) or mm(x, w))
+    with torch.no_grad():
+        tfused.fused_apply(fw, torch.zeros(1, 32, 32, 3), policy=policy)
+    allowed = []
+    if (policy or {}).get("conv1") != "torch":
+        allowed += [blk["down"] for blk in fw.blocks.values() if "down" in blk]
+    got = [c for c, dt in seen if dt == torch.bfloat16]
+    assert len(got) == len(allowed) and all(
+        any(c is a for a in allowed) for c in got)
+    assert {dt for _, dt in seen} <= {torch.float32, torch.bfloat16}
+    n_mm = 1 + (32 if policy and policy.get("conv1") == "torch" else 0)
+    n_conv = 1 + 4 + (7 + 2 if policy is None else 16)
+    assert (sum(c is None for c, _ in seen), len(seen)) == (n_mm,
+                                                            n_mm + n_conv)
+
+
 def test_fused_rejects_unknown_policy(port_fused):
     with pytest.raises(ValueError, match="policy"):
         tfused.fused_apply(port_fused[0], torch.zeros(1, 32, 32, 3),

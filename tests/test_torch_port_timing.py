@@ -54,3 +54,31 @@ def test_compared_states_ratio_and_order():
                     "x run above every y run: True, below: False")
     assert "above every y run: False, below: False" in turns.compared(
         {"x": [3.0, 1.5], "y": [1.0, 2.0]})
+
+
+# device kernel names torch.profiler gave for a fused forward on an H100
+_CAST = ("void at::native::unrolled_elementwise_kernel<at::native::"
+         "direct_copy_kernel_cuda(at::TensorIteratorBase&)::{lambda()#3}::"
+         "operator()() const::{lambda()#7}::operator()() const::"
+         "{lambda(float)#1}, std::array<char*, 2ul>, 4, TrivialOffset"
+         "Calculator<1, unsigned int>, TrivialOffsetCalculator<1, unsigned "
+         "int>, at::native::memory::LoadWithCast<1>, at::native::memory::"
+         "StoreWithCast<1> >")
+_SAME = ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_"
+         "impl_nocast<at::native::direct_copy_kernel_cuda(at::TensorIterator"
+         "Base&)::{lambda()#3}::operator()() const::{lambda()#12}::operator()"
+         "() const::{lambda(c10::BFloat16)#1}>")
+_NARROW = ("void at::native::vectorized_elementwise_kernel<8, at::native::"
+           "bfloat16_copy_kernel_cuda(at::TensorIteratorBase&)::"
+           "{lambda(float)#1}, std::array<char*, 2ul> >")
+
+
+@pytest.mark.parametrize("name, want", [
+    (_CAST, True),      # .to(torch.float32) of a bf16 tensor
+    (_SAME, False),     # a layout copy of a bf16 tensor
+    (_NARROW, False),   # float32 -> bf16 (the logits)
+    ("void (anonymous namespace)::epilogue_slab<false, true, false, 2, "
+     "true>((anonymous namespace)::Args)", False),
+])
+def test_profile_counts_only_the_widening_copies(name, want):
+    assert profiling.is_f32_copy(name) is want
