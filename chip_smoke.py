@@ -57,7 +57,7 @@
    kernels of a few microseconds time the host), except K6's and its
    route's, which are event times.
 3. Paths, each with the launch counts reset just before it and read just
-   after it, over requests of 64, 64 and 17 images:
+   after it, over requests of 64, 64 and 17 images (one of 64 in the zoo):
    - ResNet-50 fused executor with K6 off, ``InferenceEngine("resnet",
      qbit=8, policy={"chain": frozenset()})``, JAX's default placement (K1
      3, K2 32, K3 21 per forward); then the same weights on the CPU
@@ -88,13 +88,38 @@
      float32 forward of the same random weights (absmax / 15.5 of each
      layer's input and weight): the shipped constants belong to trained
      weights and saturate the quantizers of random ones;
-   and images/s at batch 64 of each against the unquantized float32 module
+   - ShuffleNetV2 (ratio 1, CIFAR 32x32) through the fused executor,
+     ``InferenceEngine("shufflenetv2", qbit=8)`` (K1 35, K3 20 per
+     forward), scales derived as for MobileNetV1; then the CPU, packed
+     weights (bit-equal logits), images/s at batch 64 and 256, and the
+     launches and device ms of its affine -> SFP<4,4> -> ReLU posts, which
+     run as plain PyTorch ops; its packed module path (K4 37, K1 20; K4's
+     operands padded to multiples of 8 at the 58- and 116-channel
+     layers), held against the fused logits by JAX's bar; a
+     reference-layout ``.pth`` of a ShuffleNetV2, served (K1 35, K3 20)
+     with logits bit-equal to an engine whose model was loaded with the
+     same weights directly;
+   - ResNet-50 at qbit 7 on the module path (K1 54 per forward, its qbit-7
+     forms), against the CPU;
+   - the zoo, one request of 64 each: VGG16 and VGG16-GELU at 32x32
+     (K4 3, K1 13), the ResNet-50 STL / Swish variants at 224x224 (K4 37,
+     K1 17), packed with derived scales, and InceptionV3 (float32 only);
+     each float32 and SLFP8 path against the CPU, and the STL / Swish
+     variants' blocks on the card against the CPU, each fed the same
+     input (their random-init quantized logits spread any summation-order
+     difference, so a block shows a fault the logits could hide);
+   K1, K3 and K4 at every site of the new paths (recorded from one forward
+   of the path, the calls adding up to the launches the path counts, then
+   held against their plain versions and timed; K4's copies of x into
+   padded channels timed apart), and
+   images/s at batch 64 of each against the unquantized float32 module
    path (``qbit=32, compute_dtype=None``), plus the fused executors' at
    batch 256.
 4. A torch.profiler breakdown per forward of the ResNet-50 fused executor
    (default ``chain={2,3}`` and chain off), the MobileNetV1 fused executor
-   (both ``dw`` routes) and SqueezeNet 1.0's module path, with the bf16 ->
-   float32 copies that remain counted apart.
+   (both ``dw`` routes), the ShuffleNetV2 fused executor and SqueezeNet
+   1.0's module path, with the bf16 -> float32 copies that remain counted
+   apart.
 
 The line before the last is one JSON object with, for each kernel, its
 launches over the run of its first path (``launches``, three forwards) and
@@ -292,7 +317,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
 
-    from cnns_slfp_quantization_tpu_torch import calib, kernels
+    from collections import Counter
+
+    from cnns_slfp_quantization_tpu_torch import calib, kernels, models
     from cnns_slfp_quantization_tpu_torch.kernels import _build, _gemm_plan
     from cnns_slfp_quantization_tpu_torch.kernels import chain as k6
     from cnns_slfp_quantization_tpu_torch.kernels import depthwise as k5
@@ -300,11 +327,16 @@ def main() -> int:
     from cnns_slfp_quantization_tpu_torch.kernels import fused_matmul as k4
     from cnns_slfp_quantization_tpu_torch.kernels import qmm as k2
     from cnns_slfp_quantization_tpu_torch.kernels import quantize as k1
+    from cnns_slfp_quantization_tpu_torch.models import (
+        shufflenetv2_fused as sfused)
     from cnns_slfp_quantization_tpu_torch.models.mobilenetv1 import DW_CONFIG
+    from cnns_slfp_quantization_tpu_torch.models.resnet50 import (
+        block_names as rn_blocks)
     from cnns_slfp_quantization_tpu_torch.models.resnet50_fused import (
         ConvKxK,
         _conv_f32,
     )
+    from cnns_slfp_quantization_tpu_torch.ops import layers as tlayers
     from cnns_slfp_quantization_tpu_torch.ops import sfp
     from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
     from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
@@ -1091,12 +1123,12 @@ def main() -> int:
     rng = np.random.default_rng(0)
     requests = [rng.standard_normal((n, 224, 224, 3)).astype(np.float32)
                 for n in (64, 64, 17)]
-    fwd = len(requests)                       # one forward per request
 
     def serve(eng, path, want, reqs=requests, classes=1000):
-        """The path's run: counts reset just before the three requests and
-        read just after; ``want`` maps wrapper -> launches per forward, every
-        other wrapper must stay at 0."""
+        """The path's run: counts reset just before the requests (one
+        forward each) and read just after; ``want`` maps wrapper ->
+        launches per forward, every other wrapper must stay at 0."""
+        fwd = len(reqs)
         eng.predict(reqs[0][:1])              # warm-up: cuDNN plans
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -1116,8 +1148,8 @@ def main() -> int:
                 rows[key].counted(path, counts[name], fwd)
         for r, lg in zip(reqs, logits):
             assert lg.shape == (r.shape[0], classes) and np.isfinite(lg).all()
-        print(f"  logits[0, :4] = {logits[0][0, :4]}, top-1 of request 3: "
-              f"{np.argmax(logits[2], -1)[:8]}", flush=True)
+        print(f"  logits[0, :4] = {logits[0][0, :4]}, top-1 of the last "
+              f"request: {np.argmax(logits[-1], -1)[:8]}", flush=True)
         return logits
 
     @phase("path: InferenceEngine resnet SLFP8 fused executor, chain off")
@@ -1428,12 +1460,419 @@ def main() -> int:
         assert (np.argmax(got, -1) == np.argmax(want, -1))[decisive].all()
         throughputs(eng, fp32, "mobilenetv1_module_packed_k4", (B,))
 
+    # ------------------------------------- the zoo and the serving surface
+    def record_sites(call):
+        """K1's, K3's and K4's calls in one run of ``call`` (a forward), by
+        their shapes and forms: {("k1" | "k3" | "k4", ...): calls}, K1's
+        first reciprocal at each under ``("recip", key)``.  The wrappers
+        are wrapped where the paths look them up (the layers of the module
+        path, the ShuffleNetV2 executor, K3's and K4's modules) for that one
+        run; the counted runs come after, through the wrappers as they
+        are."""
+        seen = Counter()
+
+        def k1_rec(orig):
+            def rec(x, recip, **kw):
+                key = ("k1", tuple(x.shape), x.dtype, kw.get("qbit", 8),
+                       kw.get("nonneg", True),
+                       kw.get("out_dtype", torch.bfloat16))
+                seen[key] += 1
+                seen.setdefault(("recip", key), float(recip))
+                return orig(x, recip, **kw)
+            rec.__dict__ = orig.__dict__   # its launch counts
+            return rec
+
+        def k3_rec(orig):
+            def rec(y, scale, shift, **kw):
+                seen[("k3", tuple(y.shape), kw.get("relu", True),
+                      kw.get("emit_raw", True),
+                      kw.get("quant_recip") is not None,
+                      kw.get("q_dtype", torch.bfloat16),
+                      kw.get("identity") is not None)] += 1
+                return orig(y, scale, shift, **kw)
+            # K3's body counts through its module's name, now this one
+            rec.__dict__ = orig.__dict__
+            return rec
+
+        def k4_rec(orig):
+            def rec(x, w, **kw):
+                seen[("k4", tuple(x.shape), x.stride(), x.dtype,
+                      tuple(w.shape), w.dtype, kw.get("bias") is not None,
+                      kw.get("stride", 1), kw.get("nonneg", False),
+                      kw.get("out_dtype", torch.float32), kw.get("act"),
+                      kw.get("n_out"))] += 1
+                return orig(x, w, **kw)
+            rec.__dict__ = orig.__dict__
+            return rec
+
+        patches = [(tlayers, "act_quantize", k1_rec),
+                   (sfused, "act_quantize", k1_rec),
+                   (k3, "bn_epilogue", k3_rec),
+                   (k4, "quant_conv1x1", k4_rec), (k4, "quant_dense", k4_rec)]
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+        try:
+            for mod, name, wrap in patches:
+                setattr(mod, name, wrap(getattr(mod, name)))
+            call()
+            torch.cuda.synchronize()
+        finally:
+            for mod, name, orig in saved:
+                setattr(mod, name, orig)
+        return seen
+
+    K3_FORM = {  # (relu, raw, q, identity) -> bench_epilogue.FORMS
+        (True, True, False, False): "raw_relu",
+        (False, True, False, False): "raw_norelu",
+        (True, False, True, False): "q",
+        (False, False, True, False): "q_norelu",
+        (True, False, True, True): "q_res", (True, True, True, True): "dual"}
+
+    copies = {}   # path -> ms per forward of K4's x copies (pad_x)
+
+    def time_sites(path, seen):
+        """Each recorded site of ``path`` in its form and at its shape on
+        inputs from the seed, against its plain version (K1, K3 bit for
+        bit; K4 by K2's rule), timed; per forward into the rows."""
+        for key, n in sorted(seen.items(), key=str):
+            if key[0] == "recip":
+                continue
+            if key[0] == "k1":
+                _, shape, dt, qbit, nonneg, od = key
+                r = seen[("recip", key)]
+                x = randn(*shape, scale=1.5 / r)
+                x = (x.abs() if nonneg else x).to(dt)
+                kw = dict(qbit=qbit, nonneg=nonneg, out_dtype=od)
+                got = k1.act_quantize(x, r, **kw)
+                want = k1.act_quantize_plain(x, r, **kw)
+                torch.cuda.synchronize()
+                assert same_bits(got, want), f"K1 {path} {key} not bit-equal"
+                ms, ems, pms = timed(lambda: k1.act_quantize(x, r, **kw),
+                                     lambda: k1.act_quantize_plain(x, r, **kw))
+                nbytes = x.numel() * (x.element_size() + got.element_size())
+                ops = x.numel() * K1_OPS
+                rows["k1"].add(n, ms, pms, nbytes, ops, F32_OPS, path=path)
+                label = f"K1 {path} {shape} {dt} -> {od} qbit {qbit}"
+            elif key[0] == "k3":
+                _, shape, relu, raw, quant, qd, ident = key
+                form = K3_FORM[(relu, raw, quant, ident)]
+                call, plain, nbytes, nel = k3_case(shape, form,
+                                                   qd == torch.float32)
+                ms, ems, pms = timed(call, plain)
+                ops = nel * K3_OPS
+                rows["k3"].add(n, ms, pms, nbytes, ops, F32_OPS, path=path)
+                label = f"K3 {path} {form} {shape} q {qd}"
+            else:
+                _, shape, xstride, xdt, (k, nn_), wdt, has_bias, stride, \
+                    nonneg, od, act, n_out = key
+                # x at the path's strides (a channel half of ShuffleNetV2
+                # is a slice), the weights as the layer hands them over
+                x = randn(*shape, scale=1.5)
+                x = torch.empty_strided(shape, xstride, dtype=xdt,
+                                        device=dev).copy_(
+                    x.abs() if nonneg else x)
+                kx, nx = shape[-1], n_out or nn_
+                wq = sfp.quantize_weight(randn(nx, kx, scale=4.0), 8)
+                w = (sfp.pack_slfp34(wq) if wdt == torch.uint8
+                     else wq.to(torch.bfloat16)).t()
+                bias = randn(nx, scale=0.1) if has_bias else None
+                if n_out is not None:   # padded once, as the layers do
+                    w, bias = k4.pad_weight(w, bias)
+                    assert tuple(w.shape) == (k, nn_), key
+                label = f"K4 {path} {shape} K={k} N={nn_} s{stride} {wdt}"
+                # the per-call copy of x into padded channels, timed apart
+                # from the kernel, which is timed on the padded operand
+                x4 = x if x.dim() == 4 else x[:, None, None, :]
+                xk = k4.pad_x(x4, k)
+                if xk is not x4:
+                    assert stride == 1, key
+                    cms = kernel_ms(lambda: k4.pad_x(x4, k))
+                    copies[path] = copies.get(path, 0.0) + n * cms
+                    label += f" (x copied to K={k}: {cms:.4f} ms apart)"
+                    x = xk if x.dim() == 4 else xk.reshape(-1, k)
+                flags = dict(nonneg=nonneg, out_dtype=od)
+                if act is not None:
+                    flags["act"] = act
+                call, plain, lib, nbytes, ops = k4_case(
+                    x, w, bias, stride, label, **flags)
+                ms, ems, pms = kernel_ms(call), median_ms(call), \
+                    median_ms(plain, iters=5, inner=1)
+                try:
+                    lms = kernel_ms(lib)
+                    label += f", torch.matmul {lms:.4f}"
+                except RuntimeError as e:
+                    # cuBLAS launches a varying number of kernels at some
+                    # small shapes, so the profiler's runs do not agree:
+                    # the library's time between CUDA events instead
+                    lms = median_ms(lib)
+                    label += (f", torch.matmul {lms:.4f} (events; profiler: "
+                              f"{str(e)[:60]})")
+                rows["k4"].add(n, ms, pms, nbytes, ops, BF16_FLOPS, lms,
+                               path=path)
+                print(f"  {label} x{n}: {ms:.4f} ms (events {ems:.4f}), "
+                      f"plain {pms:.4f}, bound "
+                      f"{bound_ms(nbytes, ops, BF16_FLOPS)[0]:.4f}",
+                      flush=True)
+                continue
+            print(f"  {label} x{n}: {ms:.4f} ms (events {ems:.4f}), plain "
+                  f"{pms:.4f} ms, bound "
+                  f"{bound_ms(nbytes, ops, F32_OPS)[0]:.4f} ms", flush=True)
+
+    def sites(path, call, want):
+        """record_sites over one forward, its calls per kernel held to
+        ``want`` (the launches per forward that serve() then asserts: a
+        site the recording misses fails here), then time_sites."""
+        seen = record_sites(call)
+        got = Counter()
+        for key, n in seen.items():
+            if key[0] != "recip":
+                got[{"k1": "act_quantize", "k3": "bn_epilogue",
+                     "k4": "fused_quant_matmul"}[key[0]]] += n
+        assert got == Counter({k: v for k, v in want.items() if v}), \
+            (path, dict(got), want)
+        time_sites(path, seen)
+        if path in copies:
+            print(f"  {path}: K4's x copies {copies[path]:.4f} ms per "
+                  f"forward", flush=True)
+
+    def batch_of(size):
+        """A batch of B images of ``size`` on the card, from seed 2."""
+        return torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (B, size, size, 3)).astype(np.float32)).to(dev)
+
+    def against_cpu(net, logits, x, **kw):
+        """The same weights (seed 0) and options on the CPU, 2 images: the
+        plain versions of the kernels; cosine > 0.995 and the same top-1.
+        Returns (cosine, the CPU engine)."""
+        t0 = time.perf_counter()
+        cpu = InferenceEngine(net, batch_size=2, seed=0, device="cpu", **kw)
+        got = cpu.predict(x[:2])
+        c = cos(got, logits[:2])
+        print(f"  CPU plain path on 2 images: cos {c:.6f}, top-1 "
+              f"{np.argmax(got, -1)} vs {np.argmax(logits[:2], -1)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        assert c > 0.995
+        assert same_top1(got, logits[:2])
+        return c, cpu
+
+    def blocks_against_cpu(eng, cpu, x):
+        """The ResNet-50 module path on the card block by block: the stem
+        and each bottleneck fed the card's own input to it, against the
+        same block on the CPU (plain versions) fed the same input; cosine
+        > 0.999 each, the bar tests/test_torch_port_zoo.py holds the port's
+        bf16 blocks to against JAX."""
+        g, c = eng.model, cpu.model
+        xg = torch.from_numpy(x[:2]).to(dev).permute(0, 3, 1, 2)
+        worst = (1.0, "")
+        with torch.inference_mode(), backend_flags():   # as the engine
+            h = g.stem(xg)
+            worst = min(worst, (cos(h.float().cpu().numpy(), c.stem(
+                xg.cpu()).float().numpy()), "stem"))
+            for _, _, pre, *_ in rn_blocks():
+                out = g.block(h, pre)
+                ref = c.block(h.cpu(), pre)
+                worst = min(worst, (cos(out.float().cpu().numpy(),
+                                        ref.float().numpy()), pre))
+                h = out
+        print(f"  blocks on the card against the CPU, each fed the card's "
+              f"input: worst cos {worst[0]:.6f} ({worst[1]})", flush=True)
+        assert worst[0] > 0.999, worst
+
+    def post_chain(eng, x):
+        """The executor's affine -> SFP<4,4> -> ReLU chain (``_post_loq``,
+        plain PyTorch ops) at each of its sites in one forward: its kernel
+        launches and device ms per forward."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        sites = Counter()
+        orig = sfused._post_loq
+        sfused._post_loq = lambda y, c: sites.update(
+            [tuple(y.shape)]) or orig(y, c)
+        try:
+            eng.forward(x)
+        finally:
+            sfused._post_loq = orig
+        launches = ms = 0.0
+        for shape, n in sites.items():
+            c = ConvKxK(w=None, scale=torch.rand(shape[-1], device=dev) * 0.02
+                        + 1e-3, shift=randn(shape[-1], scale=0.5), stride=1,
+                        pad=0)
+            y = randn(*shape, scale=40.0)
+            for _ in range(2):           # warm: the constant tables' copies
+                sfused._post_loq(y, c)
+            torch.cuda.synchronize()
+            calls = 3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    sfused._post_loq(y, c)
+                torch.cuda.synchronize()
+            evs = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            launches += n * len(evs) / calls
+            ms += n * sum(getattr(e, "self_device_time_total", 0)
+                          for e in evs) / 1e3 / calls
+        print(f"  post chain (plain ops): {sum(sites.values())} sites a "
+              f"forward, {launches:.0f} kernel launches, {ms:.4f} ms device "
+              f"time per forward at batch {x.shape[0]} (profiler)",
+              flush=True)
+
+    @phase("path: InferenceEngine shufflenetv2 SLFP8 fused executor")
+    def shufflenet_fused_phase():
+        fp32 = InferenceEngine("shufflenetv2", qbit=32, batch_size=B, seed=0,
+                               compute_dtype=None)
+        sc = derived_scales(fp32, cifar_requests[0])
+        eng = InferenceEngine("shufflenetv2", qbit=8, batch_size=B, seed=0,
+                              scales=sc)
+        assert eng.fused and eng.image_size == 32
+        x = batch_of(32)
+        want = {"act_quantize": 35, "bn_epilogue": 20}
+        sites("shufflenetv2_fused", lambda: eng.forward(x), want)
+        logits = serve(eng, "shufflenetv2_fused", want, cifar_requests, 100)
+        against_cpu("shufflenetv2", logits[0], cifar_requests[0], qbit=8,
+                    scales=sc)
+        packed = InferenceEngine("shufflenetv2", qbit=8, batch_size=B,
+                                 seed=0, scales=sc, pack_weights=True)
+        lp = packed.predict(cifar_requests[0])
+        assert np.array_equal(lp.view(np.int32), logits[0].view(np.int32)), \
+            "packed logits differ from float-frozen"
+        print("  packed uint8 weights: logits bit-equal", flush=True)
+        del packed
+        throughputs(eng, fp32, "shufflenetv2_fused", (64, 256))
+        post_chain(eng, x)
+        return eng, sc, logits[0]
+
+    @phase("path: InferenceEngine shufflenetv2 SLFP8 module path, packed "
+           "(K4)")
+    def shufflenet_module_phase(fused_eng, sc, fused_logits):
+        eng = InferenceEngine("shufflenetv2", qbit=8, batch_size=B, seed=0,
+                              scales=sc, pack_weights=True, use_pallas=None,
+                              fused=False)
+        x = batch_of(32)
+        want = {"fused_quant_matmul": 37, "act_quantize": 20}
+        sites("shufflenetv2_module", lambda: eng.forward(x), want)
+        logits = serve(eng, "shufflenetv2_module", want, cifar_requests, 100)
+        got, want = logits[0], fused_logits
+        c = cos(got, want)
+        diff = np.abs(got - want).max()
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        decisive = (top2[:, 1] - top2[:, 0]) > 3 * diff
+        print(f"  against the fused executor: cos {c:.6f}, "
+              f"{int(decisive.sum())} decisive rows", flush=True)
+        assert c > 0.98
+        assert (np.argmax(got, -1) == np.argmax(want, -1))[decisive].all()
+        # the engine's default route (fused) against this one, in turns
+        for bs in (64, 256):
+            f1 = images_per_s(fused_eng, "shufflenetv2_fused_slfp8", bs)
+            m1 = images_per_s(eng, "shufflenetv2_module_slfp8_packed_k4", bs)
+            m2 = images_per_s(eng, "shufflenetv2_module_slfp8_packed_k4", bs)
+            f2 = images_per_s(fused_eng, "shufflenetv2_fused_slfp8", bs)
+            print(f"  b{bs}: fused / module path {(f1 + f2) / (m1 + m2):.3f}",
+                  flush=True)
+
+    @phase("path: InferenceEngine resnet qbit 7 module path")
+    def resnet_q7_phase():
+        eng = InferenceEngine("resnet", qbit=7, batch_size=B, seed=0)
+        assert not eng.fused
+        x = batch_of(224)
+        sites("resnet_q7_module", lambda: eng.forward(x), {"act_quantize": 54})
+        logits = serve(eng, "resnet_q7_module", {"act_quantize": 54})
+        against_cpu("resnet", logits[0], requests[0], qbit=7)
+        images_per_s(eng, "resnet_q7_module")
+
+    def reference_state_dict(model):
+        """``model``'s weights as the reference's PyTorch model saves them:
+        per module in flax's order, weight / bias, and for BatchNorm also
+        the running statistics and the batch counter."""
+        mods = dict(model.named_modules())
+        sd = {}
+        for name in model.flax_order():
+            m = mods[name]
+            sd[f"{name}.weight"] = m.weight.detach().clone()
+            if m.bias is not None:
+                sd[f"{name}.bias"] = m.bias.detach().clone()
+            if isinstance(m, torch.nn.BatchNorm2d):
+                sd[f"{name}.running_mean"] = m.running_mean.clone()
+                sd[f"{name}.running_var"] = m.running_var.clone()
+                sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+        return sd
+
+    @phase("path: .pth checkpoint")
+    def pth_phase(sc):
+        import tempfile
+
+        model = models.create_model(
+            "shufflenetv2", 32, generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():   # BN statistics away from the init's
+            for m in model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.uniform_(-0.1, 0.1)
+                    m.running_var.uniform_(0.5, 1.5)
+        with tempfile.TemporaryDirectory() as tmp:
+            pth = pathlib.Path(tmp) / "shufflenetv2.pth"
+            own = pathlib.Path(tmp) / "shufflenetv2_state.pt"
+            torch.save(reference_state_dict(model), pth)
+            torch.save(model.state_dict(), own)
+            eng = InferenceEngine("shufflenetv2", qbit=8, batch_size=B,
+                                  scales=sc, checkpoint=str(pth))
+            logits = serve(eng, "shufflenetv2_pth",
+                           {"act_quantize": 35, "bn_epilogue": 20},
+                           cifar_requests, 100)
+            direct = InferenceEngine("shufflenetv2", qbit=8, batch_size=B,
+                                     scales=sc, checkpoint=str(own))
+            ld = direct.predict(cifar_requests[0])
+        assert np.array_equal(ld.view(np.int32), logits[0].view(np.int32)), \
+            ".pth logits differ from the directly loaded model's"
+        print("  the reference-layout .pth serves the directly loaded "
+              "model's logits, bit for bit", flush=True)
+
+    @phase("path: module path zoo")
+    def zoo_phase():
+        # net, image size, launches per forward (None: float32 only)
+        for net, size, want in (
+                ("vgg16", 32, {"fused_quant_matmul": 3, "act_quantize": 13}),
+                ("vgg16_gelu", 32, {"fused_quant_matmul": 3,
+                                    "act_quantize": 13}),
+                ("resnet_stl", 224, {"fused_quant_matmul": 37,
+                                     "act_quantize": 17}),
+                ("resnet_swish", 224, {"fused_quant_matmul": 37,
+                                       "act_quantize": 17}),
+                ("inceptionv3", 224, None)):
+            t0 = time.perf_counter()
+            reqs = [cifar_requests[0]] if size == 32 else [requests[0]]
+            classes = 100 if size == 32 else 1000
+            fp32 = InferenceEngine(net, qbit=32, batch_size=B, seed=0,
+                                   compute_dtype=None)
+            lf = serve(fp32, f"{net}_fp32", {}, reqs, classes)[0]
+            c32, _ = against_cpu(net, lf, reqs[0], qbit=32,
+                                 compute_dtype=None)
+            print(f"  {net} fp32 module path: GPU vs CPU cos {c32:.6f}",
+                  flush=True)
+            ips32 = images_per_s(fp32, f"{net}_fp32", B)
+            if want is None:
+                continue
+            sc = derived_scales(fp32, reqs[0])
+            eng = InferenceEngine(net, qbit=8, batch_size=B, seed=0,
+                                  scales=sc, pack_weights=True,
+                                  use_pallas=None)
+            x = batch_of(size)
+            sites(f"{net}_module", lambda: eng.forward(x), want)
+            logits = serve(eng, f"{net}_module", want, reqs, classes)
+            c, cpu = against_cpu(net, logits[0], reqs[0], qbit=8, scales=sc,
+                                 pack_weights=True, use_pallas=None)
+            print(f"  {net} SLFP8 GPU vs CPU cos {c:.6f}", flush=True)
+            if net.startswith("resnet_"):
+                blocks_against_cpu(eng, cpu, reqs[0])
+            del cpu
+            ips8 = images_per_s(eng, f"{net}_module_slfp8_packed_k4")
+            print(f"  {net}: SLFP8 / fp32 b{B} {ips8 / ips32:.3f}; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     def where_the_time_goes(eng, label):
         """Device time per forward at batch 64 by kernel, the idle share
         and the bf16 -> f32 copies, from torch.profiler
         (``profiling.print_forward_profile``)."""
         x = torch.from_numpy(np.random.default_rng(1).standard_normal(
-            (B, 224, 224, 3)).astype(np.float32)).to(dev)
+            (B, eng.image_size, eng.image_size, 3)).astype(np.float32)).to(dev)
         print(f"  profile {label}:", flush=True)
         print_forward_profile(lambda: eng.forward(x), B)
 
@@ -1459,11 +1898,21 @@ def main() -> int:
         mobilenetv1_module_phase(*mn[1:4])
     else:
         failures.append("mobilenetv1 module path: no fused logits to compare")
+    sh = shufflenet_fused_phase()
+    if sh is not None:
+        shufflenet_module_phase(*sh)
+        pth_phase(sh[1])
+    else:
+        failures.append("shufflenetv2 module path and .pth: no fused path "
+                        "to compare")
+    resnet_q7_phase()
+    zoo_phase()
     for eng, label in ((fused and fused[0], "resnet fused, chain off"),
                        (ch, "resnet fused, default: chain={2,3}"),
                        (sq, "squeezenet module path"),
                        (mn and mn[0], "mobilenetv1 fused"),
-                       (mn and mn[4], "mobilenetv1 fused, dw=torch")):
+                       (mn and mn[4], "mobilenetv1 fused, dw=torch"),
+                       (sh and sh[0], "shufflenetv2 fused")):
         if eng is None:
             continue
         try:

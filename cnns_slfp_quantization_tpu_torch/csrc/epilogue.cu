@@ -222,6 +222,8 @@ Launch served(bool id, bool relu, bool raw, int q) {
     return launch_slab<false, true, false, kQBf16, kFtz>;
   if (!id && relu && !raw && q == kQF32)
     return launch_slab<false, true, false, kQF32, kFtz>;
+  if (!id && !relu && !raw && q == kQF32)      // ShuffleNetV2: signed q
+    return launch_slab<false, false, false, kQF32, kFtz>;
   if (id && relu && !raw && q == kQBf16)       // conv3 at a stage end
     return launch_slab<true, true, false, kQBf16, kFtz>;
   if (id && relu && !raw && q == kQF32)

@@ -78,10 +78,59 @@ def _check_args(w, bias, act, out_dtype):
                          f"{None if bias is None else tuple(bias.shape)}")
 
 
-def _matmul(x4, w, *, ka, kw, bias, act, quantize_x, nonneg, out_dtype):
-    """K4 over the rows of x4 ``[B, H, W, K]``; returns ``[B*H*W, N]``."""
+def _up8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
+def pad_weight(w, bias):
+    """K4's weight operand for any K and N: w ``[K, N]`` (values or codes)
+    into a contiguous ``[K', N']`` tensor and bias into ``[N']``, K' and N'
+    the next multiples of 8, padded with zeros (zero weights or codes add
+    exact zeros to every sum).  A weight whose K and N are multiples of 8
+    is returned as it is.  The layers pad their frozen weights once
+    (``ops/layers.py::k4_args``)."""
+    k, n = w.shape
+    if not (k % 8 or n % 8):
+        return w, bias
+    wp = w.new_zeros((_up8(k), _up8(n)))
+    wp[:k, :n] = w
+    if bias is not None:
+        bias = torch.cat([bias, bias.new_zeros(_up8(n) - n)])
+    return wp, bias
+
+
+def pad_x(x4, k):
+    """x4 ``[B, H, W, K0]`` as the kernel reads it against a weight of K
+    rows: where K0 != K or a row stride of x4 is not a multiple of 8,
+    x4's channels copied into a contiguous tensor of K channels, zeros
+    beyond K0 (a per-call copy: ShuffleNetV2's channel halves)."""
+    if x4.shape[-1] == k and not any(st % 8 for st in x4.stride()[:3]):
+        return x4
+    xp = x4.new_zeros((*x4.shape[:3], k))
+    xp[..., :x4.shape[-1]] = x4
+    return xp
+
+
+def pad_to_8(x4, w, bias):
+    """Operands the kernel takes, for any K and N: w and bias padded by
+    :func:`pad_weight` (unless they are already), x4 by :func:`pad_x`.
+    Returns (x4, w, bias, N); the caller keeps the output's first N
+    columns.  ShuffleNetV2's 58- and 116-channel layers need it."""
+    n = w.shape[1]
+    w, bias = pad_weight(w, bias)
+    return pad_x(x4, w.shape[0]), w, bias, n
+
+
+def _matmul(x4, w, *, ka, kw, bias, act, quantize_x, nonneg, out_dtype,
+            n_out=None):
+    """K4 over the rows of x4 ``[B, H, W, K]``; returns ``[B*H*W, N]``, or
+    its first ``n_out`` columns where w and bias come padded by
+    :func:`pad_weight` (x4 then has the unpadded K, or K' channels)."""
     _check_args(w, bias, act, out_dtype)
     if x4.device.type == "cpu":
+        if n_out is not None:      # the plain version takes any K and N
+            w = w[:x4.shape[-1], :n_out]
+            bias = None if bias is None else bias[:n_out]
         return fused_quant_matmul_plain(
             x4.reshape(-1, x4.shape[-1]), w, ka=ka, kw=kw, bias=bias,
             act=act, quantize_x=quantize_x, nonneg=nonneg,
@@ -93,6 +142,8 @@ def _matmul(x4, w, *, ka, kw, bias, act, quantize_x, nonneg, out_dtype):
             "backward is ROADMAP work); call it under torch.no_grad()")
     if w.dtype == torch.float32:  # pre-quantized values: bf16, as the Pallas body casts
         w = w.to(torch.bfloat16)
+    x4, w, bias, n = pad_to_8(x4, w, bias)
+    n_out = n_out or n
     nb, h, wd, k = x4.shape
     k2, n = w.shape
     w_nk, w_store = _gemm_plan.weight_storage(w, "fused_quant_matmul")
@@ -132,7 +183,7 @@ def _matmul(x4, w, *, ka, kw, bias, act, quantize_x, nonneg, out_dtype):
         int(act == "relu"), *tiles, None if ws is None else ws.data_ptr(),
         _build.stream_of(x4))
     fused_quant_matmul.launches += 1
-    return out
+    return out if n_out == n else out[:, :n_out]
 
 
 def fused_quant_matmul(
@@ -175,25 +226,29 @@ def _dense_bias(w, bias, act, device):
 
 
 def quant_dense(x, w, *, ka, kw, bias=None, act=None, nonneg=False,
-                out_dtype=torch.float32):
+                out_dtype=torch.float32, n_out=None):
     """Dense layer on packed / pre-quantized weights; x ``[..., K]``,
-    w ``[K, N]``."""
+    w ``[K, N]``, or w and bias padded by :func:`pad_weight` and
+    ``n_out`` the N the output keeps."""
     lead = x.shape[:-1]
-    y = fused_quant_matmul(x.reshape(-1, x.shape[-1]), w, ka=ka, kw=kw,
-                           bias=_dense_bias(w, bias, act, x.device), act=act,
-                           nonneg=nonneg, out_dtype=out_dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    y = _matmul(x2[:, None, None, :], w, ka=ka, kw=kw,
+                bias=_dense_bias(w, bias, act, x.device), act=act,
+                quantize_x=True, nonneg=nonneg, out_dtype=out_dtype,
+                n_out=n_out)
     return y.reshape(*lead, y.shape[-1])
 
 
 def quant_conv1x1(x_nhwc, w, *, ka, kw, bias=None, act=None, stride: int = 1,
-                  nonneg: bool = False, out_dtype=torch.float32):
+                  nonneg: bool = False, out_dtype=torch.float32, n_out=None):
     """1x1 convolution on packed / pre-quantized weights; x NHWC, w
-    ``[Cin, Cout]``.  A stride is a strided view of x, read by the kernel
-    in place."""
+    ``[Cin, Cout]`` (or padded, as :func:`quant_dense` takes it).  A stride
+    is a strided view of x, read by the kernel in place."""
     if stride != 1:
         x_nhwc = x_nhwc[:, ::stride, ::stride, :]
     b, h, w_, _ = x_nhwc.shape
     y = _matmul(x_nhwc, w, ka=ka, kw=kw,
                 bias=_dense_bias(w, bias, act, x_nhwc.device), act=act,
-                quantize_x=True, nonneg=nonneg, out_dtype=out_dtype)
+                quantize_x=True, nonneg=nonneg, out_dtype=out_dtype,
+                n_out=n_out)
     return y.reshape(b, h, w_, y.shape[-1])

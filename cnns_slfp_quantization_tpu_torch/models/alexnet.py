@@ -69,6 +69,12 @@ class AlexNet(nn.Module):
             if isinstance(m, (QuantConv, QuantDense)):
                 m.reset_parameters(generator)
 
+    def flax_order(self):
+        """Modules holding variables, in flax's init order (JAX
+        alexnet.py): the reference ``.pth`` import's positional match
+        follows it."""
+        return [f"conv{i}" for i in range(len(CONVS))] + ["fc1", "fc2", "fc3"]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
         for sid, (*_, pool) in enumerate(CONVS):

@@ -115,6 +115,13 @@ class MobileNetV1(nn.Module):
                            scale=1.0)
                 self.fc.bias.zero_()
 
+    def flax_order(self):
+        """Modules holding variables, in flax's init order (JAX
+        mobilenetv1.py): the reference ``.pth`` import's positional match
+        follows it."""
+        n = 1 + 2 * len(DW_CONFIG)
+        return [f"{k}{i}" for i in range(n) for k in ("conv", "bn")] + ["fc"]
+
     def _post(self, i: int, x: torch.Tensor, act) -> torch.Tensor:
         x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x))
         if self.layerout_quant:

@@ -169,6 +169,9 @@ def _s2d_weight(w_oihw: torch.Tensor) -> torch.Tensor:
 
 def prepare(model: ResNet50, *, device="cuda") -> FusedWeights:
     """Fold and lay out a frozen SLFP8 ResNet-50 for :func:`fused_apply`."""
+    if model.act != "relu" or model.layerout_quant:
+        raise ValueError("the fused executor serves the ReLU ResNet-50; the "
+                         "STL / Swish variants run the module path")
     scales = model.scales
     ka, kw = scales.ka, scales.kw
     # conv1 and the downsample conv share one quantized input at every stage

@@ -67,6 +67,14 @@ class SqueezeNet(nn.Module):
             if isinstance(m, QuantConv):
                 m.reset_parameters(generator)
 
+    def flax_order(self):
+        """Modules holding variables, in flax's init order (JAX
+        squeezenet.py): the reference ``.pth`` import's positional match
+        follows it."""
+        return (["conv0"] + [f"fire{f}_{p}" for f in range(len(FIRE_PLAN))
+                             for p in ("squeeze", "expand1", "expand3")]
+                + ["classifier"])
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = relu(self.conv0(x.permute(0, 3, 1, 2)))
         for f in range(len(FIRE_PLAN)):

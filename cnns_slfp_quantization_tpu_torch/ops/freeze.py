@@ -2,8 +2,9 @@
 
 The QAT forward re-quantizes every weight on every call; serving does it
 once.  :func:`prequantize` stores ``Q(w/Kw)`` into each quantized layer, as
-float32 or bf16 values, and :func:`pack` stores it as uint8 SLFP<3,4> codes
-(1 byte per weight).  Both act on the module in place and mark its layers
+float32 or bf16 values (SFP<3,3> at qbit 7, SLFP<3,4> at qbit 8), and
+:func:`pack` stores it as uint8 SLFP<3,4> codes (1 byte per weight; qbit 8
+only, as in JAX).  Both act on the module in place and mark its layers
 ``frozen_weights``; the forward is unchanged bit for bit.  No capture run is
 needed: each layer knows its own Kw.
 """

@@ -63,6 +63,18 @@ def he_normal_(w: torch.Tensor, fan_in: int,
                                  generator=generator)
 
 
+def _storage_key(*tensors):
+    """What identifies the tensors' contents while their storages live:
+    (address, version, shape, dtype) of each; None where a tensor keeps no
+    version (made under inference_mode)."""
+    try:
+        return tuple(None if t is None else (t.data_ptr(), t._version,
+                                             tuple(t.shape), t.dtype)
+                     for t in tensors)
+    except RuntimeError:
+        return None
+
+
 class _QuantBase(nn.Module):
     def __init__(self, qbit, ka, kw, frozen_weights, nonneg_input,
                  compute_dtype, layer_id, use_pallas):
@@ -75,6 +87,7 @@ class _QuantBase(nn.Module):
         self.compute_dtype = compute_dtype
         self.layer_id = layer_id
         self.use_pallas = use_pallas
+        self._k4_pad = None        # K4's padded operands (k4_args)
         # JAX's weight quotient ``kernel / kw`` divides by a constant, which
         # XLA computes as ``kernel * f32(1/kw)``: the port multiplies by the
         # same float32 reciprocal, so its frozen and packed codes are JAX's
@@ -139,12 +152,35 @@ class _QuantBase(nn.Module):
             y = y.to(self.compute_dtype)
         return y
 
-    def k4_args(self) -> dict:
-        """K4's keyword arguments, as the JAX layers pass them."""
-        return dict(ka=float(np.float32(self.ka)),
+    def k4_args(self, pad: bool):
+        """K4's ``[K, N]`` weight operand (the transpose of the layer's
+        ``[N, K]`` storage) and keyword arguments, as the JAX layers pass
+        them.  With ``pad`` (on the card), where K or N is not a multiple of
+        8 (ShuffleNetV2's 58- and 116-channel layers), the weight and bias
+        come zero-padded (``fused_matmul.pad_weight``) with the N the output
+        keeps; a frozen layer pads them once and keeps the copy while its
+        weight and bias stay the same storage, unchanged."""
+        w = self.weight_frozen()
+        w = w.reshape(w.shape[0], -1).t()
+        args = dict(ka=float(np.float32(self.ka)),
                     kw=float(np.float32(self.kw)), bias=self.bias,
                     nonneg=self.nonneg_input,
                     out_dtype=self.compute_dtype or torch.float32)
+        k, n = w.shape
+        if not pad or not (k % 8 or n % 8):
+            return w, args
+        key = _storage_key(self.weight, self.bias) \
+            if self.frozen_weights else None
+        if key is not None and self._k4_pad and self._k4_pad[0] == key:
+            wp, bias = self._k4_pad[1]
+        else:
+            wp, bias = fused_matmul.pad_weight(w, fused_matmul._dense_bias(
+                w, self.bias, None, w.device))
+            if key is not None:   # the aliases keep the key's storages
+                self._k4_pad = (key, (wp, bias), self.weight.detach(),
+                                None if self.bias is None
+                                else self.bias.detach())
+        return wp, dict(args, bias=bias, n_out=n)
 
     def k4_wanted(self, x: torch.Tensor) -> bool:
         return self.use_pallas is True or (
@@ -189,10 +225,9 @@ class QuantConv(_QuantBase):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.uses_k4(x):
-            w = self.weight_frozen()
-            y = fused_matmul.quant_conv1x1(
-                _nhwc(x), w.reshape(w.shape[0], w.shape[1]).t(),
-                stride=self.stride, **self.k4_args())
+            w, args = self.k4_args(pad=x.is_cuda)
+            y = fused_matmul.quant_conv1x1(_nhwc(x), w, stride=self.stride,
+                                           **args)
             return y.permute(0, 3, 1, 2)
         xq, wq = self.operands(x)
         y = F.conv2d(xq, wq, stride=self.stride, padding=self.padding,
@@ -229,8 +264,8 @@ class QuantDense(_QuantBase):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.uses_k4(x):
-            return fused_matmul.quant_dense(x, self.weight_frozen().t(),
-                                            **self.k4_args())
+            w, args = self.k4_args(pad=x.is_cuda)
+            return fused_matmul.quant_dense(x, w, **args)
         xq, wq = self.operands(x)
         return self.rescale(xq @ wq.t())
 

@@ -382,3 +382,27 @@ def slfp34_decode_bits(codes: torch.Tensor) -> torch.Tensor:
     bits = (((code7 >> 4) - 4 + 127) << 23) | p[(code7 & 15).long()]
     bits = torch.where(code7 == 0, 0, bits).to(torch.int32)
     return (bits | sign).view(torch.float32)
+
+
+def pack_sfp33(q: torch.Tensor) -> torch.Tensor:
+    """SFP<3,3>-quantized float values -> uint8 codes (sign | 3-bit exp |
+    3-bit mantissa in the low 7 bits)."""
+    x32 = q.to(torch.float32)
+    sign = (x32 < 0).to(torch.int32) << 6
+    ax = torch.abs(x32)
+    m, e = _frexp_1_2(ax)
+    mant = torch.round(m * 8.0).to(torch.int32)   # 8..16; 16 carries into e
+    code6 = torch.clamp((e + 4) * 8 + (mant - 8), 0, 63)
+    code6 = torch.where(ax < float(SUBNORMAL_HI), 0, code6)
+    return (sign | code6).to(torch.uint8)
+
+
+def unpack_sfp33(codes: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 SFP<3,3> codes -> float values (0 for the zero code)."""
+    c = codes.to(torch.int32)
+    code6 = c & 0x3F
+    sign = torch.where((c & 0x40) != 0, -1.0, 1.0)
+    mant = (8 + (code6 & 7)).to(torch.float32) * 0.125
+    val = torch.where(code6 == 0, 0.0, mant * _pow2i((code6 >> 3) - 4))
+    return (sign * val).to(dtype)

@@ -67,6 +67,8 @@ FORMS = {
     "raw_relu": dict(relu=True),
     "raw_norelu": dict(relu=False),
     "q": dict(relu=True, emit_raw=False, quant=True),
+    # ShuffleNetV2's signed quantize of a bare affine (bn2, shortcut bn1)
+    "q_norelu": dict(relu=False, emit_raw=False, quant=True),
     "q_res": dict(relu=True, emit_raw=False, quant=True, identity=True),
     "dual": dict(relu=True, quant=True, identity=True),
 }

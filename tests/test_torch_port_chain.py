@@ -41,6 +41,10 @@ from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
 from cnns_slfp_quantization_tpu_torch.train.checkpoint import (
     load_jax_variables)
 
+# the suite runs in several processes at once: one intra-op thread each
+# (torch's default, a thread per core in each, spins on shared cores)
+torch.set_num_threads(1)
+
 RECIPS = dict(recip2=0.7, recip3=0.9, recip_next=0.8)
 # (N, H, W, block_images): 7x7, an odd 5x6, and N=3 over JAX's image tiles
 SHAPES = [(1, 7, 7, 4), (2, 5, 6, 4), (3, 7, 7, 2)]

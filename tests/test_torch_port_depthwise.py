@@ -30,6 +30,10 @@ from cnns_slfp_quantization_tpu_torch.kernels import depthwise as tdw
 from cnns_slfp_quantization_tpu_torch.kernels import epilogue as tepi
 from cnns_slfp_quantization_tpu_torch.ops import sfp as tsfp
 
+# the suite runs in several processes at once: one intra-op thread each
+# (torch's default, a thread per core in each, spins on shared cores)
+torch.set_num_threads(1)
+
 SHAPES = [(2, 12, 12, 128), (1, 7, 9, 32)]
 RECIP = tsfp.recip_of(0.2)
 

@@ -18,6 +18,10 @@ from cnns_slfp_quantization_tpu_torch.kernels import _build
 from cnns_slfp_quantization_tpu_torch.kernels import fused_matmul as tfm
 from cnns_slfp_quantization_tpu_torch.ops import sfp as tsfp
 
+# the suite runs in several processes at once: one intra-op thread each
+# (torch's default, a thread per core in each, spins on shared cores)
+torch.set_num_threads(1)
+
 KA, KW = 0.37, 0.11
 
 
@@ -202,3 +206,88 @@ def test_library_digest_covers_every_header(monkeypatch, tmp_path):
     after = {n: _build.library_path(n) for n in _build.SOURCES}
     assert all(before[n] != after[n] for n in _build.SOURCES)
     assert "fused_matmul" in _build.SOURCES
+
+
+@pytest.mark.parametrize("wkind", ["u8", "bf16"])
+@pytest.mark.parametrize("k,n,sliced", [(58, 58, True), (116, 232, False),
+                                        (232, 116, False), (24, 64, True)])
+def test_pad_to_8_adds_only_zeros(wkind, k, n, sliced):
+    """The card's operands for ShuffleNetV2's widths (K or N not a multiple
+    of 8, or a channel slice whose row stride is not): x copied into
+    zero-padded channels, w and bias padded with zeros where K or N needs
+    it, every sum unchanged.
+    The sums here are exact (small integers times powers of two), so the
+    padded product is the unpadded one bit for bit."""
+    rng = np.random.default_rng(k + n)
+    full = torch.from_numpy(rng.integers(-3, 4, (2, 3, 5, 2 * k + 4)).astype(
+        np.float32))       # rows 2k + 4 apart: not a multiple of 8 at k=24
+    x4 = full[..., -k:] if sliced else full[..., :k].contiguous()
+    q = torch.from_numpy(rng.choice(np.float32([-2, -1, -0.5, 0.5, 1, 2]),
+                                    (k, n)))
+    w = tsfp.pack_slfp34(q) if wkind == "u8" else q.to(torch.bfloat16)
+    bias = torch.from_numpy(rng.integers(-4, 5, n).astype(np.float32))
+    w_nk = w.t().contiguous().t()
+    xp, wp, bp, n_out = tfm.pad_to_8(x4, w_nk, bias)
+    assert n_out == n and xp.shape[-1] % 8 == 0 and wp.shape[1] % 8 == 0
+    assert xp.is_contiguous() and wp.dtype == w.dtype
+    # a weight of whole K and N is the kernel's operand as it is; only x
+    # is copied then
+    assert wp.is_contiguous() if (k % 8 or n % 8) else wp is w_nk
+    assert not xp[..., k:].any() and not wp[k:].any() and not wp[:, n:].any()
+    assert not bp[n:].any()
+    kw = dict(ka=1.0, kw=1.0, quantize_x=False)
+    want = tfm.fused_quant_matmul_plain(x4.reshape(-1, k), w, bias=bias, **kw)
+    got = tfm.fused_quant_matmul_plain(xp.reshape(-1, xp.shape[-1]), wp,
+                                       bias=bp, **kw)[:, :n_out]
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    aligned = torch.zeros(2, 3, 5, 64)
+    w8 = torch.zeros(64, 32, dtype=torch.uint8)
+    assert tfm.pad_to_8(aligned, w8, None)[0] is aligned
+
+
+@pytest.mark.parametrize("kind", ["conv_u8", "conv_bf16", "dense_u8"])
+def test_layer_pads_k4_weight_once(kind):
+    """A frozen layer of 58 -> 116 channels hands K4 its weight and bias
+    padded once (the copy kept while the weight and bias are unchanged,
+    made anew after an in-place change or a new weight), and the padded
+    operands with ``n_out`` give the unpadded layer's output on the CPU
+    route."""
+    from cnns_slfp_quantization_tpu_torch.ops import freeze as tfreeze
+    from cnns_slfp_quantization_tpu_torch.ops.layers import (
+        QuantConv, QuantDense)
+
+    torch.manual_seed(0)
+    k, n = 58, 116
+    if kind.startswith("conv"):
+        layer = QuantConv(k, n, 1, qbit=8, ka=KA, kw=KW, use_pallas=True,
+                          compute_dtype=torch.bfloat16)
+    else:
+        layer = QuantDense(k, n, qbit=8, ka=KA, kw=KW, use_pallas=True,
+                           compute_dtype=torch.bfloat16)
+    layer.reset_parameters()
+    if kind.endswith("u8"):
+        tfreeze.pack(layer)
+    else:
+        tfreeze.prequantize(layer, torch.bfloat16)
+    w, args = layer.k4_args(pad=True)
+    w2, args2 = layer.k4_args(pad=True)
+    assert w2 is w and args2["bias"] is args["bias"]
+    assert w.shape == (64, 120) and args["n_out"] == n
+    wu, plain_args = layer.k4_args(pad=False)
+    assert wu.shape == (k, n) and "n_out" not in plain_args
+    assert torch.equal(w[:k, :n], wu) and not w[k:].any() \
+        and not w[:, n:].any()
+    x = torch.randn(2, 3, 3, k)
+    call = (tfm.quant_conv1x1 if kind.startswith("conv")
+            else tfm.quant_dense)
+    want = call(x, wu, **plain_args)
+    got = call(x, w, **args)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    with torch.no_grad():                     # an in-place change
+        layer.weight.copy_(layer.weight.flip(0))
+    w3, _ = layer.k4_args(pad=True)
+    assert w3 is not w and torch.equal(w3[:k, :n], layer.k4_args(False)[0])
+    layer.weight = torch.nn.Parameter(layer.weight.clone(),
+                                      requires_grad=False)
+    assert layer.k4_args(pad=True)[0] is not w3

@@ -22,6 +22,10 @@ from cnns_slfp_quantization_tpu_torch.kernels.epilogue import (
 from cnns_slfp_quantization_tpu_torch.ops import sfp
 from cnns_slfp_quantization_tpu_torch.utils import bench_gemm
 
+# the suite runs in several processes at once: one intra-op thread each
+# (torch's default, a thread per core in each, spins on shared cores)
+torch.set_num_threads(1)
+
 HEADER = (pathlib.Path(_build.CSRC) / "gemm_sm90.cuh").read_text()
 
 

@@ -25,6 +25,10 @@ from cnns_slfp_quantization_tpu_torch.kernels import qmm as tqmm
 from cnns_slfp_quantization_tpu_torch.kernels import quantize as tquant
 from cnns_slfp_quantization_tpu_torch.ops import sfp as tsfp
 
+# the suite runs in several processes at once: one intra-op thread each
+# (torch's default, a thread per core in each, spins on shared cores)
+torch.set_num_threads(1)
+
 CUH = pathlib.Path(tsfp.__file__).resolve().parents[1] / "csrc" / "slfp.cuh"
 RECIP_A, RECIP_B = tsfp.recip_of(0.1701), tsfp.recip_of(0.2964)
 

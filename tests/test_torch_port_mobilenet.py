@@ -42,6 +42,10 @@ from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
 from cnns_slfp_quantization_tpu_torch.train.checkpoint import (
     load_jax_variables)
 
+# the suite runs in several processes at once: one intra-op thread each
+# (torch's default, a thread per core in each, spins on shared cores)
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # image size of each net at the tests' size (full widths, batch 2)
 NETS = {"mobilenet": 32, "mobilenetv1": 32, "mobilenet_swish": 32}

@@ -32,6 +32,10 @@ from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
 from cnns_slfp_quantization_tpu_torch.train.checkpoint import (
     load_jax_variables)
 
+# the suite runs in several processes at once: one intra-op thread each
+# (torch's default, a thread per core in each, spins on shared cores)
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # (image size, classes, K4 launches per forward) at the tests' small sizes
 NETS = {"squeezenet": (32, 1000, 17), "alexnet": (64, 10, 3),

@@ -26,6 +26,10 @@ from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
 from cnns_slfp_quantization_tpu_torch.train.checkpoint import (
     load_jax_variables)
 
+# the suite runs in several processes at once: one intra-op thread each
+# (torch's default, a thread per core in each, spins on shared cores)
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "cnns_slfp_quantization_tpu_torch"
 # (JAX policy, port policy); JAX's chain is empty by default, the port's
@@ -317,8 +321,10 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_create_model_names_unported_models():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.create_model("vgg16")
+    """Every name of JAX's registry is ported now: an unknown name raises
+    and says so."""
+    with pytest.raises(ValueError, match="unknown model 'vgg19'"):
+        tmodels.create_model("vgg19")
 
 
 def _imports(path: pathlib.Path):

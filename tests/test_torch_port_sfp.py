@@ -15,6 +15,10 @@ from cnns_slfp_quantization_tpu.ops import sfp as jsfp
 from cnns_slfp_quantization_tpu_torch import calib as tcalib
 from cnns_slfp_quantization_tpu_torch.ops import sfp as tsfp
 
+# the suite runs in several processes at once: one intra-op thread each
+# (torch's default, a thread per core in each, spins on shared cores)
+torch.set_num_threads(1)
+
 _KA = jax_load_scales("resnet50_imgnet").ka
 
 

@@ -8,6 +8,10 @@ import torch
 
 from cnns_slfp_quantization_tpu_torch.utils import profiling, turns
 
+# the suite runs in several processes at once: one intra-op thread each
+# (torch's default, a thread per core in each, spins on shared cores)
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("seen, floor, want", [
     # every run whole
