@@ -115,6 +115,26 @@
    images/s at batch 64 of each against the unquantized float32 module
    path (``qbit=32, compute_dtype=None``), plus the fused executors' at
    batch 256.
+   Then SLFP8 quantization-aware training of CIFAR ``mobilenet`` (full
+   width, batch 256, bf16, DSGD), scales from one training-mode float32
+   forward (absmax / 15.5):
+   - route B, ``use_pallas=True``: K4 at the 13 pointwise convs and the
+     FC with its STE backward, K1 at the other 14 inputs and in K4's
+     backward (K4 14, K1 28 a step); every K1 / K4 call of a step held
+     against its plain version and timed; K4's backward (dx, dw, db) at
+     each site on the card against the same Function on the CPU, by K2's
+     reordering rule and cosine > 0.9999; one DSGD step at batch 64 on
+     the card against the CPU from the same weights and batch (loss within
+     1e-3, each kernel's gradient cosine > 0.999, BatchNorm's > 0.95, BN
+     running statistics within 1e-4 but for at most 1%);
+   - 20 DSGD steps on 10 synthetic classes at unit scales: the last 5
+     steps' mean loss below the first 5's;
+   - the CIFAR driver, ``cifar100_train_eval.main``, route A (K1 only, 28
+     a step or eval batch): train 8 steps, evaluate, save the best and the
+     full state, reload the best (the same Precision@1), resume to epoch 2;
+   - training images/s at batch 256 of routes A and B against the float32
+     step in turns, route A's K1 sites held and timed, and each step's
+     device time by phase (CUDA events) and kernel class (profiler).
 4. A torch.profiler breakdown per forward of the ResNet-50 fused executor
    (default ``chain={2,3}`` and chain off), the MobileNetV1 fused executor
    (both ``dw`` routes), the ShuffleNetV2 fused executor and SqueezeNet
@@ -336,7 +356,6 @@ def main() -> int:
         ConvKxK,
         _conv_f32,
     )
-    from cnns_slfp_quantization_tpu_torch.ops import layers as tlayers
     from cnns_slfp_quantization_tpu_torch.ops import sfp
     from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
     from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
@@ -1505,7 +1524,7 @@ def main() -> int:
             rec.__dict__ = orig.__dict__
             return rec
 
-        patches = [(tlayers, "act_quantize", k1_rec),
+        patches = [(k1, "act_quantize", k1_rec),
                    (sfused, "act_quantize", k1_rec),
                    (k3, "bn_epilogue", k3_rec),
                    (k4, "quant_conv1x1", k4_rec), (k4, "quant_dense", k4_rec)]
@@ -1867,6 +1886,311 @@ def main() -> int:
             print(f"  {net}: SLFP8 / fp32 b{B} {ips8 / ips32:.3f}; "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ------------------------------------------------------------- training
+    from cnns_slfp_quantization_tpu_torch.cli import cifar100_train_eval
+    from cnns_slfp_quantization_tpu_torch.data.synthetic import (
+        SyntheticIterator)
+    from cnns_slfp_quantization_tpu_torch.ops.backend import exact_f32
+    from cnns_slfp_quantization_tpu_torch.train import loop as tloop
+    from cnns_slfp_quantization_tpu_torch.train import optimizers as topt
+    from cnns_slfp_quantization_tpu_torch.utils.profiling import (
+        phase_profile)
+
+    TB = 256                       # the CIFAR driver's default batch
+    # K1 at every quantized layer's input (conv0, 13 depthwise, 13
+    # pointwise, the FC); route B: K4 at the 13 pointwise convs and the FC,
+    # K1 at the other 14 inputs and again in K4's backward
+    WANT_A = {"act_quantize": 28}
+    WANT_B = {"fused_quant_matmul": 14, "act_quantize": 28}
+
+    def train_data(n, seed=7, classes=100):
+        x, y = next(iter(SyntheticIterator(num_classes=classes, batch_size=n,
+                                           num_batches=1, seed=seed)))
+        return (torch.from_numpy(x).to(dev),
+                torch.from_numpy(y.astype(np.int64)).to(dev))
+
+    def train_model(qbit, sc, cdt=torch.bfloat16, use_pallas=None,
+                    device=dev):
+        return models.create_model(
+            "mobilenet", qbit, scales=sc, compute_dtype=cdt,
+            use_pallas=use_pallas,
+            generator=torch.Generator().manual_seed(0)).to(device)
+
+    def train_scales(x):
+        """absmax / 15.5 of each quantized layer's input and weight over one
+        training-mode float32 forward of the seed's weights: eval-mode
+        maxima (BatchNorm still the identity) flush most training-mode
+        activations to the pseudo-zero."""
+        from cnns_slfp_quantization_tpu_torch.ops.freeze import quant_layers
+
+        fp = train_model(32, None, cdt=None).train()
+        ka, kw, hooks = {}, {}, []
+        for _, layer in quant_layers(fp):
+            def hook(m, inp, out):
+                ka[m.layer_id] = float(inp[0].abs().max())
+                kw[m.layer_id] = float(m.weight.abs().max())
+            hooks.append(layer.register_forward_hook(hook))
+        with torch.no_grad():
+            fp(x)
+        for h in hooks:
+            h.remove()
+        n = max(ka) + 1
+        return calib.ScaleSet(ka=np.array([ka[i] for i in range(n)]) / 15.5,
+                              kw=np.array([kw[i] for i in range(n)]) / 15.5,
+                              divisor=15.5, source="chip_smoke.py train absmax")
+
+    def new_step(model, lr=1e-3):
+        opt = topt.dsgd(model.parameters(), lr, model.qbit)
+        state = tloop.TrainState(model, opt)
+        step = tloop.make_train_step(model, opt)
+        return state, opt, lambda x, y: step(state, x, y)
+
+    def counted_step(label, step, x, y, want):
+        """One step with the counts reset just before it and read just
+        after; every wrapper at its predicted launches."""
+        step(x, y)                               # warm-up: cuDNN plans
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        m = step(x, y)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        print(f"  {label}: launches in one step at batch {x.shape[0]}: "
+              f"{counts} (predicted {want}); loss {float(m['loss']):.5f}",
+              flush=True)
+        for name, n in counts.items():
+            assert n == want.get(name, 0), (name, counts, want)
+        return counts
+
+    def backward_check(key):
+        """K4's STE backward at one training site on the card against the
+        same Function on the CPU from the same inputs: dx, dw, db by K2's
+        reordering rule, and cosine > 0.9999."""
+        _, shape, xstride, xdt, (k, n), wdt, has_bias, stride, nonneg, od, \
+            act, n_out = key
+        x = randn(*shape, scale=1.5)
+        x = (x.abs() if nonneg else x).to(xdt)
+        wq = sfp.quantize_weight(randn(n, k, scale=4.0), 8)
+        bias = randn(n, scale=0.1) if has_bias else None
+        ka_, kw_ = 0.37, 0.11
+        out = {}
+        for where in ("cuda", "cpu"):
+            xt = x.detach().to(where).requires_grad_(True)
+            wt = wq.detach().to(where).requires_grad_(True)
+            bt = (None if bias is None
+                  else bias.detach().to(where).requires_grad_(True))
+            fn = k4.quant_conv1x1 if x.dim() == 4 else k4.quant_dense
+            kwargs = dict(stride=stride) if x.dim() == 4 else {}
+            y = fn(xt, wt.t(), ka=ka_, kw=kw_, bias=bt, nonneg=nonneg,
+                   out_dtype=od, **kwargs)
+            g = torch.from_numpy(np.random.default_rng(k + n).standard_normal(
+                tuple(y.shape)).astype(np.float32)).to(od).to(where)
+            y.backward(g)
+            out[where] = (xt.grad, wt.grad, None if bt is None else bt.grad,
+                          g)
+        gx, gw, gb, g = out["cuda"]
+        cx, cw, cb, _ = [None if t is None else t.to(dev)
+                         for t in out["cpu"]]
+        assert stride == 1, key
+        gf = g.float().reshape(-1, n).abs()
+        xq = sfp.act_bf16_bits(x.reshape(-1, k), 1.0 / ka_, 8, nonneg).float()
+        m = gf.shape[0]
+        worst = 1.0
+        # each gradient, its reference, the sum of its terms' magnitudes and
+        # their count
+        for what, got, want, mag, nterms in (
+                ("dx", gx, cx, ((gf @ wq.abs()) * kw_).reshape(x.shape), n),
+                ("dw", gw, cw, (xq.abs().t() @ gf).t() * (ka_ * kw_), m),
+                ("db", gb, cb, gf.sum(0), m)):
+            if got is None:
+                continue
+            rows["k4"].err(k2_check(got, want, False, f"K4 backward {what} "
+                                    f"{shape}", mag, nterms))
+            c = cos(got.float().cpu().numpy(), want.float().cpu().numpy())
+            assert c > 0.9999, (what, shape, c)
+            worst = min(worst, c)
+        return worst
+
+    @phase("path: QAT training, CIFAR mobilenet, route B (use_pallas=True: "
+           "K4 with its STE backward, K1)")
+    def train_b_phase():
+        t0 = time.perf_counter()
+        x, y = train_data(TB)
+        sc = train_scales(x)
+        model = train_model(8, sc, use_pallas=True)
+        state, opt, step = new_step(model)
+        # every K1 / K4 call of one step (forward and backward), held
+        # against the plain versions and timed at its shape
+        sites("mobilenet_train_b", lambda: step(x, y), WANT_B)
+        counts = counted_step("route B", step, x, y, WANT_B)
+        for key, name in (("k1", "act_quantize"),
+                          ("k4", "fused_quant_matmul")):
+            rows[key].counted("mobilenet_train_b", counts[name], 1)
+        # K4's STE backward at each training site: card against CPU
+        seen = record_sites(lambda: step(x, y))
+        worst = min(backward_check(key) for key in seen if key[0] == "k4")
+        print(f"  K4 backward (dx, dw, db) at {sum(k[0] == 'k4' for k in seen)}"
+              f" site shapes: card vs CPU within the reordering bound, worst "
+              f"cosine {worst:.7f}", flush=True)
+        # one DSGD step from the same weights and batch, card against CPU
+        xs, ys = x[:64], y[:64]
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        got = {}
+        for where in ("cuda", "cpu"):
+            m = train_model(8, sc, use_pallas=True, device=where)
+            m.load_state_dict(sd)
+            _, _, st = new_step(m)
+            met = st(xs.to(where), ys.to(where))
+            got[where] = (float(met["loss"]),
+                          {k: p.grad.float().cpu() for k, p in
+                           m.named_parameters()},
+                          {k: v.float().cpu() for k, v in m.state_dict().items()
+                           if "running" in k})
+        (lg, gg, bg), (lc, gc, bc) = got["cuda"], got["cpu"]
+        assert abs(lg - lc) <= 1e-3 * abs(lc), (lg, lc)
+        worst = {"weights": (1.0, ""), "bn": (1.0, "")}
+        for k in gg:
+            kind = "bn" if k.startswith("bn") else "weights"
+            worst[kind] = min(worst[kind], (cos(gg[k].numpy(), gc[k].numpy()),
+                                            k))
+        off = sum(int((~torch.isclose(bg[k], bc[k], rtol=1e-4,
+                                      atol=1e-6)).sum()) for k in bg)
+        total = sum(v.numel() for v in bg.values())
+        rel = max(float(((bg[k] - bc[k]).abs() / (bc[k].abs() + 1e-6)).max())
+                  for k in bg)
+        print(f"  one DSGD step at batch 64, card vs CPU: loss {lg:.6f} vs "
+              f"{lc:.6f}; gradient cosine worst {worst['weights']} (kernels), "
+              f"{worst['bn']} (BN); BN running statistics beyond 1e-4: "
+              f"{off} of {total}, largest relative difference {rel:.3g}",
+              flush=True)
+        # the card sums in another order, and at bf16 an activation at a
+        # quantizer's bin edge flips by a step and moves the statistics
+        # after it; BN's gradients are cancelling sums of bf16 cotangents,
+        # where JAX against itself reads 0.97 (tests/test_torch_port_train.py)
+        assert worst["weights"][0] > 0.999 and worst["bn"][0] > 0.95, worst
+        assert off <= 1e-2 * total, (off, total)
+        print(f"  route B: {time.perf_counter() - t0:.1f} s", flush=True)
+        return sc
+
+    @phase("path: QAT training learns, 20 DSGD steps on 10 synthetic classes")
+    def train_learn_phase():
+        model = train_model(8, calib.ScaleSet.ones(28), use_pallas=True)
+        _, _, step = new_step(model, lr=0.02)
+        losses = []
+        for xb, yb in SyntheticIterator(num_classes=10, batch_size=TB,
+                                        num_batches=20, seed=0):
+            m = step(torch.from_numpy(xb).to(dev),
+                     torch.from_numpy(yb.astype(np.int64)).to(dev))
+            losses.append(float(m["loss"]))
+        print(f"  losses {[round(v, 4) for v in losses]}: first 5 mean "
+              f"{np.mean(losses[:5]):.4f}, last 5 {np.mean(losses[-5:]):.4f}",
+              flush=True)
+        assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+
+    @phase("path: cifar100_train_eval (route A: K1), train / save / reload / "
+           "resume")
+    def train_cli_phase():
+        import contextlib
+        import io
+        import tempfile
+
+        args = ["--Qbits", "8", "--net", "mobilenet", "--optimizer", "DSGD",
+                "--compute_dtype", "bfloat16", "--synthetic", "--retrain",
+                "--synthetic_batches", "8", "--log_interval", "4"]
+        with tempfile.TemporaryDirectory() as tmp:
+            kernels.reset_launches()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                state, accs = cifar100_train_eval.main(
+                    args + ["--save_model", "--save_state", "--root_dir",
+                            tmp])
+            torch.cuda.synchronize()
+            counts = kernels.launches()
+            printed = buf.getvalue()
+            print("  " + printed.strip().replace("\n", "\n  "), flush=True)
+            # 8 steps of 256 and 8 eval batches of 128, 28 K1 each
+            assert counts["act_quantize"] == 28 * 16, counts
+            assert sum(counts.values()) == counts["act_quantize"], counts
+            ckpt = pathlib.Path(tmp) / "ckpt" / "cifar-100" / "mobilenet0_tmp"
+            log = pathlib.Path(tmp) / "logs" / "cifar-100" / "run.jsonl"
+            names = {json.loads(r)["name"]
+                     for r in log.read_text().splitlines()}
+            assert names == {"epoch_time", "Precision@1", "Precision@5"}, names
+            assert ckpt.exists() and pathlib.Path(f"{ckpt}_state").exists()
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, again = cifar100_train_eval.main(
+                    args[:8] + ["--synthetic", "--pretrain", "--pretrain_dir",
+                                str(ckpt), "--root_dir", f"{tmp}/eval"])
+                resumed, _ = cifar100_train_eval.main(
+                    args + ["--max_epochs", "2", "--resume",
+                            f"{ckpt}_state", "--root_dir", tmp])
+            print(f"  launches {counts}; Precision@1 {accs} reloaded "
+                  f"{again}; resumed from step {state.step} to "
+                  f"{resumed.step}", flush=True)
+            assert again == accs and state.step == 8 and resumed.step == 16
+
+    def train_throughput(label, step, x, y):
+        ips = throughput(lambda: step(x, y), x.shape[0], iters=8, warmup=2)
+        print(f"  throughput {label}_b{x.shape[0]}: {ips:.1f} images/s "
+              f"(training steps)", flush=True)
+        return ips
+
+    def step_phases(model, opt, x, y):
+        """A training step as three phases for phase_profile."""
+        held = {}
+
+        def forward():
+            model.train()
+            held["loss"] = tloop.cross_entropy(model(x), y)
+
+        def backward():
+            opt.zero_grad(set_to_none=True)
+            held["loss"].backward()
+
+        return [("forward", forward), ("backward", backward),
+                ("optimizer", opt.step)]
+
+    @phase("training images/s and where the step's time goes, batch 256")
+    def train_speed_phase(sc):
+        x, y = train_data(TB)
+        routes = {
+            "route_A_slfp8_bf16_k1": train_model(8, sc),
+            "route_B_slfp8_bf16_k4": train_model(8, sc, use_pallas=True),
+            "fp32": train_model(32, sc, cdt=None),
+        }
+        steps = {k: new_step(m) for k, m in routes.items()}
+        # route A's K1 sites (the CLI's route), held and timed as route B's
+        step_a = steps["route_A_slfp8_bf16_k1"][2]
+        sites("mobilenet_train_a", lambda: step_a(x, y), WANT_A)
+        counts = counted_step("route A", step_a, x, y, WANT_A)
+        rows["k1"].counted("mobilenet_train_a", counts["act_quantize"], 1)
+        ips = {k: [] for k in routes}
+        for k in list(routes) + list(routes)[::-1]:     # in turns
+            ips[k].append(train_throughput(k, steps[k][2], x, y))
+        mean = {k: sum(v) / len(v) for k, v in ips.items()}
+        print("  training images/s at batch 256 (mean of two, in turns): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in mean.items())
+              + f"; route A / fp32 {mean['route_A_slfp8_bf16_k1'] / mean['fp32']:.3f}"
+              f", route B / fp32 {mean['route_B_slfp8_bf16_k4'] / mean['fp32']:.3f}",
+              flush=True)
+        for k, m in routes.items():
+            try:
+                with exact_f32():
+                    prof = phase_profile(step_phases(m, steps[k][1], x, y))
+            except Exception:  # a measurement; the checks decide success
+                print(f"  profile {k}: failed (not measured)\n"
+                      f"{traceback.format_exc()}", flush=True)
+                continue
+            busy = sum(prof["classes"].values())
+            print(f"  profile {k} per step at batch {TB}: wall "
+                  f"{prof['wall']:.3f} ms (" + ", ".join(
+                      f"{ph} {ms:.3f}" for ph, ms in prof["phases"].items())
+                  + f"), kernels {busy:.3f} ms, idle share "
+                  f"{1 - busy / prof['wall']:.3f}; by class: " + ", ".join(
+                      f"{c} {ms:.3f}" for c, ms in prof["classes"].items())
+                  + " ms", flush=True)
+            for name, ms, n in prof["top"]:
+                print(f"    {ms:8.3f} ms  x{n:6.1f}  {name[:110]}", flush=True)
+
     def where_the_time_goes(eng, label):
         """Device time per forward at batch 64 by kernel, the idle share
         and the bf16 -> f32 copies, from torch.profiler
@@ -1907,6 +2231,13 @@ def main() -> int:
                         "to compare")
     resnet_q7_phase()
     zoo_phase()
+    sc_train = train_b_phase()
+    train_learn_phase()
+    train_cli_phase()
+    if sc_train is not None:
+        train_speed_phase(sc_train)
+    else:
+        failures.append("training speed: no route B scales")
     for eng, label in ((fused and fused[0], "resnet fused, chain off"),
                        (ch, "resnet fused, default: chain={2,3}"),
                        (sq, "squeezenet module path"),

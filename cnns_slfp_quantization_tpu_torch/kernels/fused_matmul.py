@@ -137,9 +137,13 @@ def _matmul(x4, w, *, ka, kw, bias, act, quantize_x, nonneg, out_dtype,
             out_dtype=out_dtype)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x4, w, bias)):
+        # the float-weight route differentiates through _DiffMatmul, whose
+        # forward runs with the gradient off
         raise NotImplementedError(
-            "fused_quant_matmul has no backward on the card yet (the STE "
-            "backward is ROADMAP work); call it under torch.no_grad()")
+            "fused_quant_matmul has a backward only for float weights with "
+            "act=None (quant_dense / quant_conv1x1, as JAX's _diff_matmul); "
+            "uint8 codes, act and pre-padded weights are inference-only: "
+            "call it under torch.no_grad()")
     if w.dtype == torch.float32:  # pre-quantized values: bf16, as the Pallas body casts
         w = w.to(torch.bfloat16)
     x4, w, bias, n = pad_to_8(x4, w, bias)
@@ -215,6 +219,63 @@ def fused_quant_matmul(
 fused_quant_matmul.launches = 0
 
 
+class _DiffMatmul(torch.autograd.Function):
+    """JAX ``_diff_matmul``: K4 forward (its plain version on the CPU), the
+    analytic STE backward in float32 with identity through Q_a:
+
+        dx = (g @ w^T) * f32(kw)                     in x's dtype
+        dw = (Q_a(x/ka)^T @ g) * f32(ka*kw)          in w's dtype
+        db = sum of g over the rows
+
+    ``Q_a(x/ka)`` is recomputed by K1 on the card.  The products are
+    ``torch.matmul``, as JAX leaves them to XLA.  x4 ``[B, H, W, K]`` (a
+    strided view carries dx back to its positions), w ``[K, N]`` float
+    values unpadded: the forward pads for the kernel where K or N is not a
+    multiple of 8, so dw reaches the layer's own weight."""
+
+    @staticmethod
+    def forward(ctx, x4, w, bias, ka, kw, nonneg, out_dtype):
+        ctx.save_for_backward(x4, w)
+        ctx.consts = (ka, kw, nonneg)
+        return _matmul(x4, w, ka=ka, kw=kw, bias=bias, act=None,
+                       quantize_x=True, nonneg=nonneg, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from cnns_slfp_quantization_tpu_torch.kernels.quantize import (
+            act_quantize)
+
+        x4, w = ctx.saved_tensors
+        ka, kw, nonneg = ctx.consts
+        recip, _, c_scale = _consts(ka, kw)
+        gf = g.to(torch.float32)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            # Python scalars holding float32 values multiply in float32
+            dx = (gf @ w.to(torch.float32).t()) * float(np.float32(kw))
+            dx = dx.reshape(x4.shape).to(x4.dtype)
+        if ctx.needs_input_grad[1]:
+            x2 = x4.reshape(-1, x4.shape[-1]).contiguous()
+            xq = act_quantize(x2, recip, qbit=8, nonneg=nonneg,
+                              out_dtype=torch.float32)
+            dw = (xq.t() @ gf) * float(c_scale)
+            dw = dw.to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = gf.sum(dim=0)
+        return dx, dw, db, None, None, None, None
+
+
+def _k4(x4, w, *, ka, kw, bias, act, nonneg, out_dtype, n_out):
+    """K4 over x4's rows for the layers: float weights with act=None and no
+    pre-padding go through the differentiable form, as JAX's quant_dense
+    sends them through ``_diff_matmul``; the rest are inference-only."""
+    bias = _dense_bias(w, bias, act, x4.device)
+    if w.dtype != torch.uint8 and act is None and n_out is None:
+        return _DiffMatmul.apply(x4, w, bias, ka, kw, nonneg, out_dtype)
+    return _matmul(x4, w, ka=ka, kw=kw, bias=bias, act=act, quantize_x=True,
+                   nonneg=nonneg, out_dtype=out_dtype, n_out=n_out)
+
+
 def _dense_bias(w, bias, act, device):
     """JAX's float-weight dense route (``_diff_matmul``) always passes a
     bias, zeros when there is none, which turns a -0.0 sum into +0.0; the
@@ -232,10 +293,8 @@ def quant_dense(x, w, *, ka, kw, bias=None, act=None, nonneg=False,
     ``n_out`` the N the output keeps."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    y = _matmul(x2[:, None, None, :], w, ka=ka, kw=kw,
-                bias=_dense_bias(w, bias, act, x.device), act=act,
-                quantize_x=True, nonneg=nonneg, out_dtype=out_dtype,
-                n_out=n_out)
+    y = _k4(x2[:, None, None, :], w, ka=ka, kw=kw, bias=bias, act=act,
+            nonneg=nonneg, out_dtype=out_dtype, n_out=n_out)
     return y.reshape(*lead, y.shape[-1])
 
 
@@ -247,8 +306,6 @@ def quant_conv1x1(x_nhwc, w, *, ka, kw, bias=None, act=None, stride: int = 1,
     if stride != 1:
         x_nhwc = x_nhwc[:, ::stride, ::stride, :]
     b, h, w_, _ = x_nhwc.shape
-    y = _matmul(x_nhwc, w, ka=ka, kw=kw,
-                bias=_dense_bias(w, bias, act, x_nhwc.device), act=act,
-                quantize_x=True, nonneg=nonneg, out_dtype=out_dtype,
-                n_out=n_out)
+    y = _k4(x_nhwc, w, ka=ka, kw=kw, bias=bias, act=act, nonneg=nonneg,
+            out_dtype=out_dtype, n_out=n_out)
     return y.reshape(b, h, w_, y.shape[-1])

@@ -18,7 +18,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cnns_slfp_quantization_tpu_torch.ops.layers import he_normal_, relu
+from cnns_slfp_quantization_tpu_torch.ops.layers import (
+    BatchNorm2d,
+    he_normal_,
+    relu,
+)
 
 
 # each mixed block's convs, in flax's call order (JAX inception_v3.py:51-107)
@@ -49,7 +53,7 @@ class BasicConv2d(nn.Module):
         self.conv = nn.Conv2d(cin, features, _pair(kernel_size),
                               stride=_pair(stride), padding=_pair(padding),
                               bias=False)
-        self.bn = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return relu(self.bn(self.conv(x)))

@@ -31,6 +31,7 @@ from cnns_slfp_quantization_tpu_torch.calib import ScaleSet
 from cnns_slfp_quantization_tpu_torch.ops import activations
 from cnns_slfp_quantization_tpu_torch.ops.backend import full_f32_matmul
 from cnns_slfp_quantization_tpu_torch.ops.layers import (
+    BatchNorm2d,
     LayeroutQuant,
     QuantConv,
     QuantDense,
@@ -45,11 +46,6 @@ DW_CONFIG = [
     (512, 512, 1), (512, 1024, 2), (1024, 1024, 1),
 ]
 FC_ID = 27
-
-
-def _bn(ch):
-    # flax BatchNorm(momentum=0.9, epsilon=1e-5)
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
 
 class MobileNetV1(nn.Module):
@@ -74,7 +70,7 @@ class MobileNetV1(nn.Module):
                 frozen_weights=frozen_weights, nonneg_input=nonneg,
                 compute_dtype=compute_dtype, layer_id=i,
                 use_pallas=use_pallas))
-            setattr(self, f"bn{i}", _bn(cout))
+            setattr(self, f"bn{i}", BatchNorm2d(cout))
             if layerout_quant:
                 setattr(self, f"loq{i}", LayeroutQuant(qbit))
 

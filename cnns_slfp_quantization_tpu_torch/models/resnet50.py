@@ -27,6 +27,7 @@ from torch import nn
 from cnns_slfp_quantization_tpu_torch.calib import ScaleSet
 from cnns_slfp_quantization_tpu_torch.ops import activations
 from cnns_slfp_quantization_tpu_torch.ops.layers import (
+    BatchNorm2d,
     LayeroutQuant,
     QuantConv,
     QuantDense,
@@ -51,11 +52,6 @@ def block_names():
                         stride if b == 0 else 1, planes, in_ch))
             in_ch = planes * EXPANSION
     return out
-
-
-def _bn(ch):
-    # flax BatchNorm(momentum=0.9, epsilon=1e-5)
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
 
 class ResNet50(nn.Module):
@@ -87,24 +83,24 @@ class ResNet50(nn.Module):
                 setattr(self, name, LayeroutQuant(qbit))
 
         self.conv1 = conv(0, 3, 64, 7, 2, 3, nonneg=False)
-        self.bn1 = _bn(64)
+        self.bn1 = BatchNorm2d(64)
         loq("loq1")
         for _, b, pre, sid, stride, planes, in_ch in block_names():
             out_ch = planes * EXPANSION
             setattr(self, f"{pre}_conv1", conv(sid + 1, in_ch, planes, 1))
-            setattr(self, f"{pre}_bn1", _bn(planes))
+            setattr(self, f"{pre}_bn1", BatchNorm2d(planes))
             loq(f"{pre}_loq1")
             setattr(self, f"{pre}_conv2",
                     conv(sid + 2, planes, planes, 3, stride, 1))
-            setattr(self, f"{pre}_bn2", _bn(planes))
+            setattr(self, f"{pre}_bn2", BatchNorm2d(planes))
             loq(f"{pre}_loq2")
             setattr(self, f"{pre}_conv3", conv(sid + 3, planes, out_ch, 1))
-            setattr(self, f"{pre}_bn3", _bn(out_ch))
+            setattr(self, f"{pre}_bn3", BatchNorm2d(out_ch))
             if b == 0:
                 base = sid
                 setattr(self, f"{pre}_down_conv",
                         conv(base, in_ch, out_ch, 1, stride))
-                setattr(self, f"{pre}_down_bn", _bn(out_ch))
+                setattr(self, f"{pre}_down_bn", BatchNorm2d(out_ch))
             loq(f"{pre}_loq3")
         self.fc = QuantDense(512 * EXPANSION, num_classes, qbit=qbit,
                              ka=scales.ka[53], kw=scales.kw[53],

@@ -22,6 +22,7 @@ from torch import nn
 
 from cnns_slfp_quantization_tpu_torch.calib import ScaleSet
 from cnns_slfp_quantization_tpu_torch.ops.layers import (
+    BatchNorm2d,
     LayeroutQuant,
     QuantConv,
     QuantDense,
@@ -60,11 +61,6 @@ def units(ratio: float = 1):
     return out
 
 
-def _bn(ch):
-    # flax BatchNorm(momentum=0.9, epsilon=1e-5)
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
-
-
 class ShuffleUnit(nn.Module):
     """One unit (reference ShuffleUnit :47-114): the downsample form
     (stride 2, or a change of width) has a residual and a shortcut branch
@@ -90,20 +86,20 @@ class ShuffleUnit(nn.Module):
                              layer_id=sid, use_pallas=use_pallas)
 
         self.res_conv1 = conv(ids[0], rc, rc, 1, nonneg=nonneg_in)
-        self.res_bn1 = _bn(rc)
+        self.res_bn1 = BatchNorm2d(rc)
         self.res_loq1 = LayeroutQuant(qbit)
         self.res_conv2 = conv(ids[1], rc, rc, 3, stride, groups=rc, pad=1,
                               nonneg=True)
-        self.res_bn2 = _bn(rc)
+        self.res_bn2 = BatchNorm2d(rc)
         self.res_conv3 = conv(ids[2], rc, out_half, 1)
-        self.res_bn3 = _bn(out_half)
+        self.res_bn3 = BatchNorm2d(out_half)
         self.res_loq3 = LayeroutQuant(qbit)
         if self.downsample:
             self.short_conv1 = conv(ids[3], rc, rc, 3, stride, groups=rc,
                                     pad=1, nonneg=nonneg_in)
-            self.short_bn1 = _bn(rc)
+            self.short_bn1 = BatchNorm2d(rc)
             self.short_conv2 = conv(ids[4], rc, out_channels // 2, 1)
-            self.short_bn2 = _bn(out_channels // 2)
+            self.short_bn2 = BatchNorm2d(out_channels // 2)
             self.short_loq2 = LayeroutQuant(qbit)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -136,7 +132,7 @@ class ShuffleNetV2(nn.Module):
                       compute_dtype=compute_dtype, use_pallas=use_pallas)
         self.pre_conv = QuantConv(3, 24, 3, padding=1, ka=scales.ka[0],
                                   kw=scales.kw[0], layer_id=0, **common)
-        self.pre_bn = _bn(24)
+        self.pre_bn = BatchNorm2d(24)
         for name, ids, cin, cout, stride, nonneg_in in units(ratio):
             setattr(self, name, ShuffleUnit(scales, ids, cin, cout, stride,
                                             nonneg_in, **common))
@@ -144,7 +140,7 @@ class ShuffleNetV2(nn.Module):
         self.conv5 = QuantConv(width, c5, 1, ka=scales.ka[CONV5_ID],
                                kw=scales.kw[CONV5_ID], nonneg_input=True,
                                layer_id=CONV5_ID, **common)
-        self.conv5_bn = _bn(c5)
+        self.conv5_bn = BatchNorm2d(c5)
         self.conv5_loq = LayeroutQuant(qbit)
         self.fc = QuantDense(c5, num_classes, ka=scales.ka[FC_ID],
                              kw=scales.kw[FC_ID], nonneg_input=True,

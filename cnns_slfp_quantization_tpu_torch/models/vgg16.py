@@ -27,6 +27,8 @@ from torch import nn
 from cnns_slfp_quantization_tpu_torch.calib import ScaleSet
 from cnns_slfp_quantization_tpu_torch.ops import activations
 from cnns_slfp_quantization_tpu_torch.ops.layers import (
+    BatchNorm2d,
+    Dropout,
     LayeroutQuant,
     QuantConv,
     QuantDense,
@@ -34,11 +36,6 @@ from cnns_slfp_quantization_tpu_torch.ops.layers import (
 
 # (features, convs) per group, VGG16-D (JAX vgg16.py:27)
 GROUPS = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
-
-
-def _bn(ch):
-    # flax BatchNorm(momentum=0.9, epsilon=1e-5)
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
 
 class VGG16(nn.Module):
@@ -64,7 +61,7 @@ class VGG16(nn.Module):
                     ka=scales.ka[i], kw=scales.kw[i],
                     nonneg_input=i > 0 and not gelu_variant, layer_id=i,
                     **common))
-                setattr(self, f"bn{i}", _bn(feat))
+                setattr(self, f"bn{i}", BatchNorm2d(feat))
                 if gelu_variant:
                     setattr(self, f"loq{i}", LayeroutQuant(qbit))
                 i, cin = i + 1, feat
@@ -77,6 +74,8 @@ class VGG16(nn.Module):
                 nonneg_input=not gelu_variant, layer_id=sids[k], **common))
             if gelu_variant and k < 2:
                 setattr(self, f"{name}_loq", LayeroutQuant(qbit))
+        # after fc1 and fc2 in training mode (JAX vgg16.py:83)
+        self.drop = Dropout(0.4 if gelu_variant else 0.5)
         for m in self.modules():
             if isinstance(m, (QuantConv, QuantDense)):
                 m.reset_parameters(generator)
@@ -104,6 +103,6 @@ class VGG16(nn.Module):
                 i += 1
             x = F.max_pool2d(x, 2, 2)
         x = torch.mean(x, dim=(2, 3))
-        x = self._act(self.fc1(x), "fc1_loq")
-        x = self._act(self.fc2(x), "fc2_loq")
+        x = self.drop(self._act(self.fc1(x), "fc1_loq"))
+        x = self.drop(self._act(self.fc2(x), "fc2_loq"))
         return self.fc3(x)

@@ -1,7 +1,8 @@
-"""The PyTorch numerics flags the SLFP8 serving paths run under.
+"""The PyTorch numerics flags the SLFP8 serving paths and the training
+step run under.
 
-Shared by the fused ResNet-50 executor (``models/resnet50_fused.py``) and
-the qbit-8 module path of ``serve.InferenceEngine``.
+Shared by the fused ResNet-50 executor (``models/resnet50_fused.py``), the
+qbit-8 module path of ``serve.InferenceEngine`` and ``train/loop.py``.
 """
 
 from __future__ import annotations
@@ -46,3 +47,17 @@ def full_f32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """cuDNN convolutions and float32 matmuls in full float32 (no TF32),
+    restored after: the training step's backward reads float32 cotangents,
+    which TF32 would round to 10 mantissa bits."""
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul_tf32

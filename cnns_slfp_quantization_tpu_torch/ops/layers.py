@@ -35,7 +35,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from cnns_slfp_quantization_tpu_torch.kernels import fused_matmul
-from cnns_slfp_quantization_tpu_torch.kernels.quantize import act_quantize
 from cnns_slfp_quantization_tpu_torch.ops import sfp
 
 
@@ -122,15 +121,15 @@ class _QuantBase(nn.Module):
         """``Q_act(x / Ka)`` as the float32 operand cuDNN and the matmuls
         read, holding compute-dtype values."""
         if self.compute_dtype == torch.bfloat16 and self.qbit in (7, 8):
-            # K1 on the card, its plain version on the CPU; it writes the
-            # bf16 values as float32 itself, so no copy widens them
-            args = dict(qbit=self.qbit, nonneg=self.nonneg_input,
-                        out_dtype=torch.float32)
-            recip = sfp.recip_of(self.ka)
+            # K1 on the card, its plain version on the CPU, with JAX's STE
+            # gradient; it writes the bf16 values as float32 itself, so no
+            # copy widens them
+            args = (sfp.recip_of(self.ka), self.qbit, self.nonneg_input,
+                    torch.float32)
             if x.dim() == 4:
-                return act_quantize(_nhwc(x), recip, **args).permute(
+                return sfp.fused_scale_quant_act_bf16(_nhwc(x), *args).permute(
                     0, 3, 1, 2)
-            return act_quantize(x.contiguous(), recip, **args)
+            return sfp.fused_scale_quant_act_bf16(x.contiguous(), *args)
         xq = sfp.quantize_act(x * self.rka32, self.qbit)
         if self.compute_dtype is not None:
             # bf16 values, float32 sums (the JAX preferred_element_type=f32)
@@ -156,10 +155,10 @@ class _QuantBase(nn.Module):
         """K4's ``[K, N]`` weight operand (the transpose of the layer's
         ``[N, K]`` storage) and keyword arguments, as the JAX layers pass
         them.  With ``pad`` (on the card), where K or N is not a multiple of
-        8 (ShuffleNetV2's 58- and 116-channel layers), the weight and bias
-        come zero-padded (``fused_matmul.pad_weight``) with the N the output
-        keeps; a frozen layer pads them once and keeps the copy while its
-        weight and bias stay the same storage, unchanged."""
+        8 (ShuffleNetV2's 58- and 116-channel layers), a frozen layer's
+        weight and bias come zero-padded (``fused_matmul.pad_weight``) with
+        the N the output keeps, padded once and kept while its weight and
+        bias stay the same storage, unchanged."""
         w = self.weight_frozen()
         w = w.reshape(w.shape[0], -1).t()
         args = dict(ka=float(np.float32(self.ka)),
@@ -167,10 +166,11 @@ class _QuantBase(nn.Module):
                     nonneg=self.nonneg_input,
                     out_dtype=self.compute_dtype or torch.float32)
         k, n = w.shape
-        if not pad or not (k % 8 or n % 8):
+        if not pad or not (k % 8 or n % 8) or not self.frozen_weights:
+            # a weight computed now goes unpadded: the differentiable K4
+            # form pads it per call, so its gradient reaches the weight
             return w, args
-        key = _storage_key(self.weight, self.bias) \
-            if self.frozen_weights else None
+        key = _storage_key(self.weight, self.bias)
         if key is not None and self._k4_pad and self._k4_pad[0] == key:
             wp, bias = self._k4_pad[1]
         else:
@@ -281,3 +281,51 @@ class LayeroutQuant(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return sfp.quantize_layerout(x, self.qbit)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` on NCHW, the one every
+    model builds.  Eval mode is torch's (the running statistics, which the
+    executors fold).  Training mode is flax's: the batch statistics reduced
+    in float32 whatever the stream's type, the *biased* variance
+    ``max(0, E[x^2] - E[x]^2)`` (torch's own keeps the unbiased one in its
+    running variance), ``ra = 0.9 * ra + 0.1 * batch``, and the output in
+    x's type."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        x32 = x.to(torch.float32)
+        mean = x32.mean(dim=(0, 2, 3))
+        var = torch.clamp(x32.square().mean(dim=(0, 2, 3)) - mean.square(),
+                          min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean
+                                    + 0.1 * mean.detach())
+            self.running_var.copy_(0.9 * self.running_var
+                                   + 0.1 * var.detach())
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+class Dropout(nn.Dropout):
+    """flax ``Dropout``: in training mode keep each element with
+    probability ``1 - p`` and scale it by ``1 / (1 - p)``, drawing from
+    ``generator`` when one is set (the training loop sets it per step);
+    the identity in eval mode."""
+
+    generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)

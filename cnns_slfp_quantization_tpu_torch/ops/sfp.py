@@ -318,6 +318,41 @@ def slfp34_act_bits(x: torch.Tensor) -> torch.Tensor:
     return (out | sign).view(torch.float32).to(x.dtype)
 
 
+class _FusedScaleQuantAct(torch.autograd.Function):
+    """JAX ``fused_scale_quant_act_bf16`` (its ``custom_vjp``): K1 forward,
+    STE backward ``dx = g * f32(recip)``."""
+
+    @staticmethod
+    def forward(ctx, x, recip, qbit, nonneg, out_dtype):
+        # K1 on a CUDA tensor, its plain version on a CPU one (imported
+        # here: kernels.quantize imports this module)
+        from cnns_slfp_quantization_tpu_torch.kernels.quantize import (
+            act_quantize)
+
+        ctx.recip, ctx.x_dtype = recip, x.dtype
+        return act_quantize(x, recip, qbit=qbit, nonneg=nonneg,
+                            out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # JAX's primal output is bf16, so its cotangent arrives rounded to
+        # bf16; a float32 output holding bf16 values gets it unrounded
+        g32 = g.to(torch.bfloat16).to(torch.float32)
+        # a Python scalar holding the float32 value multiplies in float32
+        dx = g32 * float(np.float32(ctx.recip))
+        return dx.to(ctx.x_dtype), None, None, None, None
+
+
+def fused_scale_quant_act_bf16(x: torch.Tensor, recip: float, qbit: int,
+                               nonneg: bool = False,
+                               out_dtype: torch.dtype = torch.bfloat16
+                               ) -> torch.Tensor:
+    """``bf16(quantize_act(x * recip, qbit))`` with JAX's STE gradient
+    ``dx = bf16(g) * f32(recip)`` in x's dtype.  ``out_dtype=torch.float32``
+    writes the bf16 values widened exactly (the operand cuDNN reads)."""
+    return _FusedScaleQuantAct.apply(x, recip, qbit, nonneg, out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Codebook and real uint8 packing (sign | 3-bit exp | 4-bit log mantissa).
 # ---------------------------------------------------------------------------

@@ -1,5 +1,11 @@
-"""Weight bridges into the port's modules (counterpart of the JAX
-``train/checkpoint.py``).
+"""Checkpoints of the port and weight bridges into its modules
+(counterpart of the JAX ``train/checkpoint.py``).
+
+:func:`save` / :func:`restore` write and read the port's own checkpoints
+with ``torch.save`` / ``torch.load``, where JAX writes orbax trees: a dict
+of a model's ``state_dict`` (the best-accuracy checkpoint of
+``--save_model``), plus the optimizer's and the step (the full train state
+of ``--save_state``).
 
 :func:`load_jax_variables` fills a port model from a dict of numpy arrays
 shaped like flax's ``{"params": ..., "batch_stats": ...}``, matching by
@@ -19,11 +25,39 @@ variables for :func:`load_jax_variables`.
 
 from __future__ import annotations
 
+import pathlib
+
 import numpy as np
 import torch
 from torch import nn
 
 from cnns_slfp_quantization_tpu_torch.ops.layers import QuantConv, QuantDense
+
+def save(path, state: dict) -> None:
+    """``torch.save`` of ``state`` (tensors moved to the CPU first, so a
+    checkpoint written on the card loads anywhere), through a temporary
+    file renamed into place."""
+    path = pathlib.Path(path).absolute()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(_to_cpu(state), tmp)
+    tmp.replace(path)
+
+
+def restore(path, map_location="cpu") -> dict:
+    """The dict :func:`save` wrote."""
+    return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
 
 # (flax collection, flax leaf) -> torch attribute, per module kind
 _CONV = {("params", "kernel"): "weight", ("params", "bias"): "bias"}

@@ -80,7 +80,7 @@ def whole_runs(seen: list, floor: int) -> list:
 
 
 def kernel_ms(fn: Callable[[], object], *, reps: int = 5, runs: int = 3,
-              tries: int = 4) -> float:
+              tries: int = 8) -> float:
     """Device milliseconds per call of the kernels ``fn`` launches, from
     torch.profiler (the host's share excluded): the median of ``runs``
     profiled runs of ``reps`` calls.  Events around back-to-back calls of
@@ -176,3 +176,63 @@ def print_forward_profile(fn: Callable[[], object], batch: int,
           f"{sum(ms for _, ms, _ in copies):.3f} ms", flush=True)
     for key, ms, n in evs[:top]:
         print(f"    {ms:8.3f} ms  x{n:5.1f}  {key[:100]}", flush=True)
+
+
+# kernel class -> substrings of the kernel names it takes, tried in order
+KERNEL_CLASSES = (
+    ("K1", ("quantize_kernel", "f32form_kernel")),
+    ("K4", ("FusedEpi",)),
+    ("cuDNN conv", ("cudnn", "conv", "implicit", "dgrad", "wgrad", "fprop",
+                    "Winograd")),
+    ("cuBLAS", ("gemm", "cutlass", "cublas", "Kernel2", "splitKreduce")),
+)
+
+
+def kernel_class(name: str) -> str:
+    for label, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return label
+    return "elementwise"
+
+
+def phase_profile(phases, calls: int = 3, top: int = 12) -> dict:
+    """Where a step's device time goes: ``phases`` is a list of (label, fn)
+    run in turn per call.  CUDA events between the phases give each
+    phase's span on the device (its kernels and the gaps between them, in
+    stream order); torch.profiler over the same calls gives the kernel
+    time by class (:func:`kernel_class`) and the ``top`` kernels.
+    Returns {"wall": ms, "phases": {label: ms}, "classes": {class: ms},
+    "top": [(name, ms, launches)]}, all per call."""
+    torch = _require_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(marks=None):
+        for i, (_, fn) in enumerate(phases):
+            if marks is not None:
+                marks[i].record()
+            fn()
+        if marks is not None:
+            marks[-1].record()
+
+    run()
+    torch.cuda.synchronize()
+    marks = [[torch.cuda.Event(enable_timing=True)
+              for _ in range(len(phases) + 1)] for _ in range(calls)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for m in marks:
+            run(m)
+        torch.cuda.synchronize()
+    out = {"wall": sum(m[0].elapsed_time(m[-1]) for m in marks) / calls,
+           "phases": {label: sum(m[i].elapsed_time(m[i + 1])
+                                 for m in marks) / calls
+                      for i, (label, _) in enumerate(phases)},
+           "classes": {}}
+    evs = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / calls,
+            e.count / calls) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    for key, ms, _ in evs:
+        c = kernel_class(key)
+        out["classes"][c] = out["classes"].get(c, 0.0) + ms
+    out["top"] = sorted(evs, key=lambda e: -e[1])[:top]
+    return out
