@@ -135,8 +135,38 @@
    - training images/s at batch 256 of routes A and B against the float32
      step in turns, route A's K1 sites held and timed, and each step's
      device time by phase (CUDA events) and kernel class (profiler).
+   Then the PTQ workflow:
+   - calibrate -> serve: the float32 ResNet-50 (the engine's seed-0
+     weights, ``capture="absmax"``, exact float32) over 256 images at
+     224 on the card and on the CPU (weights and the image's maximum
+     bit-equal, every other maximum within CAL_RTOL), the JSON written and
+     the executor's ``ka[base] == ka[base+1]`` guard checked on it, then
+     ``InferenceEngine("resnet", qbit=8, scales=...)`` on the fused
+     executor (K1 5, K2 18, K3 14, K6 7 per forward) and on the module
+     path (K1 54), cosine > 0.995 and the same top-1 between the two;
+   - ``ptq_sweep`` on AlexNet at 224, qbits 32 8 7, bf16, 8 synthetic
+     batches of 32: its JSON line, accuracies in [0, 100], K1 8 per
+     quantized forward;
+   - ``imgnet_train_eval --net resnet --Qbits 8 --compute_dtype bfloat16
+     --synthetic``: two 100-image smoke evals, K1 54 per forward;
+   - ``cifar100_train_eval`` from a CIFAR-100 written here in the
+     published pickle layout (2,560 train, 1,000 test images, seed 0):
+     ``--pre_reference`` writes its three files, then one ``--retrain``
+     epoch at bf16 with ``--train_subset 0.06`` (K1 28 per step and eval
+     batch) on the native augmenter, which must build on the card's host;
+   - ``recovery.run`` (mobilenet, qbit 8, 2,560 train images, batch 128,
+     2 + 2 epochs, 512 eval images): its row, the subset's size, finite
+     accuracies (float32 compute, as JAX's: no kernel);
+   - the block-input levers of the ResNet-50 executor at batch 8, 224
+     (``conv3="torch"``, K6 off, conv1 on K2 and as a plain matmul):
+     ``pallas_dual`` bit-equal to ``consumer``, ``packed`` within 1e-2
+     with the same top-1, ``producer`` cosine > 0.995; the consumer's 12
+     extra K1 passes a forward against K3's 12 dual launches.
+   K1 and K3 at every site of these paths are held against their plain
+   versions and timed as above.
 4. A torch.profiler breakdown per forward of the ResNet-50 fused executor
-   (default ``chain={2,3}`` and chain off), the MobileNetV1 fused executor
+   (default ``chain={2,3}``, chain off, and on the freshly calibrated
+   constants), the MobileNetV1 fused executor
    (both ``dw`` routes), the ShuffleNetV2 fused executor and SqueezeNet
    1.0's module path, with the bf16 -> float32 copies that remain counted
    apart.
@@ -1485,9 +1515,9 @@ def main() -> int:
         their shapes and forms: {("k1" | "k3" | "k4", ...): calls}, K1's
         first reciprocal at each under ``("recip", key)``.  The wrappers
         are wrapped where the paths look them up (the layers of the module
-        path, the ShuffleNetV2 executor, K3's and K4's modules) for that one
-        run; the counted runs come after, through the wrappers as they
-        are."""
+        path, the ShuffleNetV2 executor, the quantize pass ResNet-50's
+        executor calls, K3's and K4's modules) for that one run; the
+        counted runs come after, through the wrappers as they are."""
         seen = Counter()
 
         def k1_rec(orig):
@@ -1526,6 +1556,7 @@ def main() -> int:
 
         patches = [(k1, "act_quantize", k1_rec),
                    (sfused, "act_quantize", k1_rec),
+                   (k2, "act_quantize", k1_rec),  # ResNet-50's K1 passes
                    (k3, "bn_epilogue", k3_rec),
                    (k4, "quant_conv1x1", k4_rec), (k4, "quant_dense", k4_rec)]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
@@ -1544,7 +1575,8 @@ def main() -> int:
         (False, True, False, False): "raw_norelu",
         (True, False, True, False): "q",
         (False, False, True, False): "q_norelu",
-        (True, False, True, True): "q_res", (True, True, True, True): "dual"}
+        (True, False, True, True): "q_res", (True, True, True, True): "dual",
+        (True, True, False, True): "raw_res"}
 
     copies = {}   # path -> ms per forward of K4's x copies (pad_x)
 
@@ -2191,6 +2223,311 @@ def main() -> int:
             for name, ms, n in prof["top"]:
                 print(f"    {ms:8.3f} ms  x{n:6.1f}  {name[:110]}", flush=True)
 
+    # ------------------------------------------------ the PTQ workflow
+    from cnns_slfp_quantization_tpu_torch.calib import calibrate as tcal
+    from cnns_slfp_quantization_tpu_torch.cli import (
+        imgnet_train_eval,
+        ptq_sweep,
+        recovery,
+    )
+    from cnns_slfp_quantization_tpu_torch.data import subset as tsubset
+    from cnns_slfp_quantization_tpu_torch.models import resnet50_fused as rf
+    from cnns_slfp_quantization_tpu_torch.models.resnet50 import STAGES
+    from cnns_slfp_quantization_tpu_torch.utils import native as tnative
+
+    def echoed(fn, *a, **k):
+        """fn's result and what it printed, echoed indented."""
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*a, **k)
+        text = buf.getvalue()
+        print("  " + text.strip().replace("\n", "\n  "), flush=True)
+        return out, text
+
+    def counted(fn, *a, **k):
+        """echoed(fn), with the launch counts of that run alone."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out, text = echoed(fn, *a, **k)
+        torch.cuda.synchronize()
+        return out, text, kernels.launches()
+
+    def only_k1(counts, n, label):
+        """``counts`` launched K1 n times and no other kernel."""
+        assert counts["act_quantize"] == n and sum(counts.values()) == n, \
+            (label, n, counts)
+
+    # the largest relative difference allowed between a maximum the card
+    # calibrates and the CPU's (weights and the image's maximum bit-equal):
+    # both sum in float32 in another order
+    CAL_RTOL = 1e-5
+    CAL_IMAGES = 256
+
+    @phase("path: calibrate -> serve, ResNet-50 SLFP8 at 224, 1000 classes")
+    def calibrate_serve_phase(shipped):
+        import tempfile
+
+        x = np.random.default_rng(11).standard_normal(
+            (CAL_IMAGES, 224, 224, 3)).astype(np.float32)
+        batches = [x[i:i + B] for i in range(0, CAL_IMAGES, B)]
+        res = {}
+        for where in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            # the engine's weights (seed 0), float32, capture="absmax"
+            cap = models.create_model(
+                "resnet", 32, capture="absmax",
+                generator=torch.Generator().manual_seed(0)).to(where)
+            kernels.reset_launches()
+            res[where] = tcal.calibrate(cap, batches, max_images=CAL_IMAGES)
+            if where == "cuda":   # a float32 pass: no kernel of the port
+                torch.cuda.synchronize()
+                assert sum(kernels.launches().values()) == 0
+            print(f"  calibrated on the {where} over {CAL_IMAGES} images "
+                  f"(exact float32) in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            del cap
+        g, c = res["cuda"], res["cpu"]
+        worst = {}
+        for kind in ("input_absmax", "weight_absmax", "output_absmax"):
+            gd, cd = getattr(g, kind), getattr(c, kind)
+            assert set(gd) == set(cd) == set(range(54)), kind
+            worst[kind] = max((abs(gd[i] - cd[i]) / cd[i], i) for i in cd)
+        print(f"  card vs CPU, worst relative difference (layer): weights "
+              f"{worst['weight_absmax']}, inputs {worst['input_absmax']} "
+              f"(in0 {g.input_absmax[0]} vs {c.input_absmax[0]}), outputs "
+              f"{worst['output_absmax']}", flush=True)
+        assert worst["weight_absmax"][0] == 0
+        assert g.input_absmax[0] == c.input_absmax[0]
+        assert max(worst["input_absmax"][0],
+                   worst["output_absmax"][0]) <= CAL_RTOL, worst
+        with tempfile.TemporaryDirectory() as tmp:
+            path = calib.save_scales("resnet50_calibrated", g.ka_max(),
+                                     g.kw_max(), 15.5,
+                                     source="chip_smoke calibration",
+                                     out_dir=tmp)
+            sc = calib.load_scales_path(path)
+            # the executor's guard: conv1 and the downsample conv share
+            # the stage input's quantize
+            for _, _, _, base in STAGES:
+                assert sc.ka[base] == sc.ka[base + 1], base
+            eng = InferenceEngine("resnet", qbit=8, batch_size=B,
+                                  image_size=224, seed=0, scales=str(path))
+            mod = InferenceEngine("resnet", qbit=8, batch_size=B,
+                                  image_size=224, seed=0, scales=str(path),
+                                  fused=False)
+        assert eng.fused and not mod.fused
+        sites("resnet_calibrated", lambda: eng.forward(batch_of(224)),
+              {"act_quantize": 5, "bn_epilogue": 14})
+        lf = serve(eng, "resnet_calibrated", {
+            "act_quantize": 5, "qmm_fused": 18, "bn_epilogue": 14,
+            "bottleneck_chain": 7})
+        sites("resnet_calibrated_module",
+              lambda: mod.forward(batch_of(224)), {"act_quantize": 54})
+        lm = serve(mod, "resnet_calibrated_module", {"act_quantize": 54})
+        worst = min(cos(a, b) for a, b in zip(lf, lm))
+        print(f"  fused executor against the module path on the calibrated "
+              f"constants: worst cos {worst:.6f} over {len(lf)} requests",
+              flush=True)
+        assert worst > 0.995
+        assert all(same_top1(a, b) for a, b in zip(lf, lm))
+        if shipped is not None:
+            # the same executor and weights on the shipped constants, in
+            # turns: the constants change values, not shapes
+            ips = [images_per_s(e, label) for e, label in (
+                (shipped, "resnet_shipped"), (eng, "resnet_calibrated"),
+                (eng, "resnet_calibrated"), (shipped, "resnet_shipped"))]
+            print(f"  calibrated / shipped constants, images/s in turns: "
+                  f"{(ips[1] + ips[2]) / (ips[0] + ips[3]):.3f}", flush=True)
+        return eng
+
+    @phase("path: ptq_sweep, AlexNet (JAX's default net), ImageNet size, "
+           "qbits 32 8 7, bf16")
+    def ptq_sweep_phase():
+        res, text, counts = counted(ptq_sweep.main, [
+            "--synthetic", "--eval_batch_size", "32", "--compute_dtype",
+            "bfloat16"])
+        line = json.loads(text.strip().splitlines()[-1])
+        assert list(line) == ["32", "8", "7"], line
+        for q, m in line.items():
+            assert m["images"] == 8 * 32, (q, m)
+            assert all(np.isfinite(m[k]) and 0 <= m[k] <= 100
+                       for k in ("top1", "top5")), (q, m)
+        assert "PTQ top-1 loss @ Qbits=8" in text
+        # K1 at the input of each of AlexNet's 8 quantized layers, 8
+        # batches each at qbit 8 and 7; none at qbit 32
+        only_k1(counts, 2 * 8 * 8, "ptq_sweep")
+        print(f"  launches {counts}: K1 8 per quantized forward", flush=True)
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (32, 224, 224, 3)).astype(np.float32)).to(dev)
+        for q in (8, 7):
+            m = models.create_model(
+                "alexnet", q, compute_dtype=torch.bfloat16,
+                generator=torch.Generator().manual_seed(0)).to(dev).eval()
+
+            def forward():
+                with torch.no_grad(), exact_f32():   # as the eval step
+                    m(x)
+
+            sites(f"ptq_sweep_alexnet_q{q}", forward, {"act_quantize": 8})
+            # the sweep's own launches: 8 forwards at each quantized qbit
+            rows["k1"].counted(f"ptq_sweep_alexnet_q{q}",
+                               counts["act_quantize"] // 2, 8)
+            del m
+
+    @phase("path: imgnet_train_eval --net resnet --Qbits 8 --compute_dtype "
+           "bfloat16 --synthetic")
+    def imgnet_phase():
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            (_, accs), text, counts = counted(imgnet_train_eval.main, [
+                "--net", "resnet", "--Qbits", "8", "--compute_dtype",
+                "bfloat16", "--synthetic", "--root_dir", tmp])
+        # two epochs' smoke evals of 100 images in batches of 16, K1 at
+        # each of the 54 quantized layers' inputs
+        assert text.count("(100 images)") == 2 and len(accs) == 2, text
+        assert all(0 <= a <= 100 for a in accs)
+        only_k1(counts, 54 * 2 * -(-100 // 16), "imgnet_train_eval")
+        m = models.create_model(
+            "resnet", 8, compute_dtype=torch.bfloat16,
+            generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        x = batch_of(224)[:16]
+
+        def forward():
+            with torch.no_grad(), exact_f32():
+                m(x)
+
+        sites("imgnet_resnet_bf16", forward, {"act_quantize": 54})
+        rows["k1"].counted("imgnet_resnet_bf16", counts["act_quantize"],
+                           2 * -(-100 // 16))
+
+    def write_cifar100(root, n_train, n_test, seed=0):
+        """cifar-100-python/{train,test} in the published pickle layout
+        (uint8 rows of 3072 in CHW order, ``fine_labels``), from a seed."""
+        import pickle
+
+        rng = np.random.default_rng(seed)
+        d = pathlib.Path(root) / "cifar-100-python"
+        d.mkdir(parents=True)
+        labels = {}
+        for name, n in (("train", n_train), ("test", n_test)):
+            labels[name] = rng.integers(0, 100, n)
+            with open(d / name, "wb") as f:
+                pickle.dump({"data": rng.integers(0, 256, (n, 3072),
+                                                  dtype=np.uint8),
+                             "fine_labels": labels[name].tolist()}, f)
+        return labels
+
+    @phase("path: cifar100_train_eval from a CIFAR-100 on disk")
+    def cifar_disk_phase():
+        import tempfile
+
+        assert tnative.available(), f"native library: {tnative.error}"
+        print(f"  native library built on this host: {tnative.path}",
+              flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            labels = write_cifar100(f"{tmp}/data", 2560, 1000)
+            args = ["--net", "mobilenet", "--data_dir", f"{tmp}/data"]
+            _, text, counts = counted(cifar100_train_eval.main, args + [
+                "--pre_reference", "--root_dir", f"{tmp}/cal"])
+            for name in ("max_inout_mobilenet.txt", "max_weight_mobilenet.txt",
+                         "calib/mobilenet_calibrated.json"):
+                assert (pathlib.Path(tmp) / "cal" / name).stat().st_size, name
+            first = (pathlib.Path(tmp) / "cal" /
+                     "max_inout_mobilenet.txt").read_text().splitlines()[:2]
+            print(f"  --pre_reference wrote its three files; {first}",
+                  flush=True)
+            assert sum(counts.values()) == 0, counts   # a float32 pass
+            (state, accs), text, counts = counted(
+                cifar100_train_eval.main, args + [
+                    "--Qbits", "8", "--compute_dtype", "bfloat16",
+                    "--optimizer", "DSGD", "--retrain", "--train_subset",
+                    "0.06", "--root_dir", f"{tmp}/run"])
+        assert "augmenter: native" in text, text
+        n = len(tsubset.stratified_indices(labels["train"], 0.06))
+        steps, evals = -(-n // 256), -(-1000 // 128)
+        assert state.step == steps and len(accs) == 1, (n, state.step)
+        assert "(1000 images)" in text
+        only_k1(counts, 28 * (steps + evals), "cifar100_train_eval")
+        print(f"  the 6% subset: {n} of 2560 images, {steps} step(s); "
+              f"launches {counts}", flush=True)
+
+    @phase("path: recovery, mobilenet (CIFAR), qbit 8")
+    def recovery_phase():
+        row, _, counts = counted(
+            recovery.run, "mobilenet", 8, fp32_epochs=2, train_images=2560,
+            batch=128, subset_fraction=0.06, qat_epochs=2, eval_images=512,
+            seed=0, device="cuda")
+        _, tr_y = recovery._train_arrays(2560, 128,
+                                         recovery._task("mobilenet"), seed=0)
+        n = len(tsubset.stratified_indices(tr_y, 0.06, seed=0))
+        assert row["subset_images"] == n, (row, n)
+        assert all(np.isfinite(row[k]) and 0 <= row[k] <= 100
+                   for k in ("acc_fp32", "acc_ptq", "acc_recovered")), row
+        # float32 compute, as JAX's recovery: the quantizers are the plain
+        # float ones there (JAX runs no Pallas kernel either)
+        print(f"  subset {n} images; launches {counts}", flush=True)
+
+    @phase("path: block-input levers, ResNet-50 at batch 8, 224")
+    def blockin_phase():
+        x = torch.from_numpy(requests[0][:8]).to(dev)
+        counts = {}
+        for pol in ({"conv1": "torch", "conv3": "torch", **NO_CHAIN},
+                    {"conv3": "torch", **NO_CHAIN}):
+            eng = InferenceEngine("resnet", qbit=8, batch_size=8,
+                                  image_size=224, seed=0, policy=pol)
+            out = {}
+            for mode in rf.BLOCKIN_FUSE:
+                def fwd(mode=mode):
+                    with torch.inference_mode():
+                        return rf.fused_apply(eng.executor, x, policy=pol,
+                                              _diag_blockin_fuse=mode)
+                fwd()
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                y = fwd()
+                torch.cuda.synchronize()
+                counts[(pol.get("conv1", "kernel"), mode)] = \
+                    kernels.launches()
+                out[mode] = y.float().cpu().numpy()
+            base = out["consumer"]
+            assert np.array_equal(out["pallas_dual"].view(np.int32),
+                                  base.view(np.int32)), pol
+            err = float(np.abs(out["packed"] - base).max())
+            assert err < 1e-2 and same_top1(out["packed"], base), (pol, err)
+            c = cos(out["producer"], base)
+            assert c > 0.995 and same_top1(out["producer"], base), (pol, c)
+            print(f"  {pol}: pallas_dual bit-equal to consumer; packed max "
+                  f"|diff| {err:.3g}, same top-1; producer cos {c:.6f}",
+                  flush=True)
+        for key, cnt in counts.items():
+            print(f"  launches {key}: {dict(cnt)}", flush=True)
+        dual, cons = counts[("torch", "pallas_dual")], \
+            counts[("torch", "consumer")]
+        # the 12 mid-stage block outputs: K3's dual form, or K3 raw and the
+        # consumer's K1
+        assert dual["bn_epilogue_dual"] == 12 == cons["act_quantize"] - \
+            dual["act_quantize"] and cons["bn_epilogue_dual"] == 0, counts
+        assert cons["bn_epilogue"] == dual["bn_epilogue"], counts
+        eng = InferenceEngine("resnet", qbit=8, batch_size=8, image_size=224,
+                              seed=0, policy={"conv1": "torch",
+                                              "conv3": "torch", **NO_CHAIN})
+        for mode in ("consumer", "pallas_dual"):
+            cnt = counts[("torch", mode)]
+
+            def fwd(mode=mode):
+                with torch.inference_mode():
+                    rf.fused_apply(eng.executor, x, policy=eng.policy,
+                                   _diag_blockin_fuse=mode)
+
+            sites(f"blockin_{mode}", fwd, {"act_quantize": cnt["act_quantize"],
+                                           "bn_epilogue": cnt["bn_epilogue"]})
+            for key, name in (("k1", "act_quantize"), ("k3", "bn_epilogue")):
+                rows[key].counted(f"blockin_{mode}", cnt[name], 1)
+
     def where_the_time_goes(eng, label):
         """Device time per forward at batch 64 by kernel, the idle share
         and the bf16 -> f32 copies, from torch.profiler
@@ -2238,8 +2575,15 @@ def main() -> int:
         train_speed_phase(sc_train)
     else:
         failures.append("training speed: no route B scales")
+    cal = calibrate_serve_phase(ch)
+    ptq_sweep_phase()
+    imgnet_phase()
+    cifar_disk_phase()
+    recovery_phase()
+    blockin_phase()
     for eng, label in ((fused and fused[0], "resnet fused, chain off"),
                        (ch, "resnet fused, default: chain={2,3}"),
+                       (cal, "resnet fused, freshly calibrated constants"),
                        (sq, "squeezenet module path"),
                        (mn and mn[0], "mobilenetv1 fused"),
                        (mn and mn[4], "mobilenetv1 fused, dw=torch"),

@@ -2,7 +2,9 @@
 
 Per-layer ``ka``/``kw`` are stored as max-abs values in JSON under
 ``calib/constants/`` with the reference's divisor (``Ka = max|input| /
-15.5``).  The port ships its own copy of the constants it serves.
+15.5``, 15.0 for ShuffleNetV2).  The port ships its own copy of the
+constants it serves; :mod:`.calibrate` regenerates them from a float32
+model and :func:`save_scales` writes them in JAX's format.
 """
 
 from __future__ import annotations
@@ -50,3 +52,31 @@ def load_scales_path(path) -> ScaleSet:
         divisor=div,
         source=data.get("source", str(path)),
     )
+
+
+def save_scales(name: str, ka_max, kw_max, divisor: float,
+                source: str = "calibrated", out_dir=None):
+    """Write a scale-set JSON (JAX ``calib.save_scales``: the same keys,
+    order and ``indent=1``).
+
+    ``out_dir=None`` writes into the package's ``calib/constants/`` (for
+    deliberately shipping a new constants set); runtime callers (the
+    ``--pre_reference`` CLI path) pass an output directory, so generated
+    files land under ``--root_dir``, not inside the installed package.
+    """
+    out = _CONSTANTS_DIR if out_dir is None else pathlib.Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{name}.json"
+    path.write_text(
+        json.dumps(
+            {
+                "source": source,
+                "divisor": divisor,
+                "ka_max": list(map(float, ka_max)),
+                "kw_max": list(map(float, kw_max)),
+            },
+            indent=1,
+        )
+        + "\n"
+    )
+    return path

@@ -9,9 +9,9 @@ save, with JAX's flags and its divergences from the reference (no stale
 
 ``--device`` (default ``cuda``; ``--use_gpu`` names the index) is where the
 model, the batches and the optimizer state live; ``cuda`` without a card
-raises.  Not ported yet, and raising ``NotImplementedError`` with their
-ROADMAP item: ``--pre_reference`` (calibration, Queue 1 item 6), a dataset
-on disk (item 7), ``--mesh_data`` / ``--mesh_model`` (item 9).
+raises.  ``--pre_reference`` calibrates (:func:`run_calibration`) and
+returns.  Not ported yet, and raising ``NotImplementedError`` with their
+ROADMAP item: ``--mesh_data`` / ``--mesh_model`` (Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ import warnings
 import numpy as np
 import torch
 
-from cnns_slfp_quantization_tpu_torch import models
+from cnns_slfp_quantization_tpu_torch import calib, models
+from cnns_slfp_quantization_tpu_torch.calib import calibrate as calibrate_lib
 from cnns_slfp_quantization_tpu_torch.train import checkpoint, loop, optimizers
 from cnns_slfp_quantization_tpu_torch.utils.logging import MetricLogger
 
@@ -80,19 +81,11 @@ def add_common_args(parser):
 def configure_runtime(cfg) -> torch.device:
     """The run's device (raising without a card under ``cuda``) and the
     flags: ``--debug_nans`` turns on autograd's anomaly detection; the
-    unported flags raise here, before anything is built."""
-    if cfg.pre_reference:
-        raise NotImplementedError(
-            "--pre_reference: calibration capture is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+    unported mesh flags raise here, before anything is built."""
     if cfg.mesh_data or cfg.mesh_model > 1:
         raise NotImplementedError(
             "--mesh_data / --mesh_model: the port has no mesh yet (ROADMAP "
             "Queue 1 item 9)")
-    if not cfg.synthetic:
-        raise NotImplementedError(
-            "datasets on disk are not ported yet (ROADMAP Queue 1 item 7): "
-            "pass --synthetic")
     if cfg.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     if cfg.device == "cpu":
@@ -103,13 +96,15 @@ def configure_runtime(cfg) -> torch.device:
     return torch.device(f"cuda:{int(cfg.use_gpu)}")
 
 
-def build_model(cfg, net: str, device: torch.device):
+def build_model(cfg, net: str, device: torch.device, image_size=None):
     """The model, its weights from a seeded generator (flax's init RNG
     cannot be reproduced: parity with JAX goes through
-    ``checkpoint.load_jax_variables``)."""
+    ``checkpoint.load_jax_variables``); ``image_size`` sets AlexNet's fc1
+    width (flax infers it from the input)."""
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     model = models.create_model(net, cfg.Qbits, compute_dtype=compute_dtype,
                                 ratio=getattr(cfg, "ratio", 1),
+                                image_size=image_size,
                                 generator=torch.Generator().manual_seed(0))
     return model.to(device)
 
@@ -125,6 +120,40 @@ def load_pretrained(cfg, model):
     else:
         model.load_state_dict(checkpoint.restore(path)["model"])
     return model
+
+
+def run_calibration(cfg, model, net, eval_batches, divisor=15.5,
+                    total_images=1000):
+    """``--pre_reference``: run ``model``'s weights through a float32
+    capture model of the same net (JAX's ``calib_model``: ``--Qbits``, no
+    compute dtype, ``capture="absmax"``) over ``total_images`` eval images
+    and write ``max_inout_<net>.txt`` / ``max_weight_<net>.txt``
+    (cifar100_train_eval.py:279-301; JAX's format, ``str`` of each float32
+    maximum) and ``calib/<net>_calibrated.json`` under ``--root_dir``,
+    never into the package."""
+    cap = models.create_model(net, cfg.Qbits, capture="absmax",
+                              ratio=getattr(cfg, "ratio", 1))
+    cap.load_state_dict(model.state_dict())
+    cap.to(next(model.parameters()).device)
+    result = calibrate_lib.calibrate(cap, eval_batches,
+                                     max_images=total_images)
+    out_root = cfg.root_dir or "."
+    os.makedirs(out_root, exist_ok=True)
+    with open(os.path.join(out_root, f"max_inout_{net}.txt"), "w") as f:
+        for idx in sorted(result.input_absmax):
+            f.write(f"Layer {idx} Max Absolute Input:\n")
+            f.write(str(result.input_absmax[idx]) + "\n\n")
+        for idx in sorted(result.output_absmax):
+            f.write(f"Layer {idx} Max Absolute Output:\n")
+            f.write(str(result.output_absmax[idx]) + "\n\n")
+    with open(os.path.join(out_root, f"max_weight_{net}.txt"), "w") as f:
+        for idx in sorted(result.weight_absmax):
+            f.write(f"Layer {idx} Max Absolute weight:\n")
+            f.write(str(result.weight_absmax[idx]) + "\n\n")
+    calib.save_scales(f"{net}_calibrated", result.ka_max(), result.kw_max(),
+                      divisor, out_dir=os.path.join(out_root, "calib"))
+    print(f"Results saved to max_weight_{net}.txt")
+    return result
 
 
 def _state_meta_path(state_path: str) -> str:

@@ -81,3 +81,27 @@ def slfp34_act_quantize(x: torch.Tensor) -> torch.Tensor:
 
 
 slfp34_act_quantize.launches = 0
+
+
+def _f32_bits(v: float) -> int:
+    return int(np.float32(v).view(np.int32))
+
+
+def slfp34_pack_bits(x: torch.Tensor) -> torch.Tensor:
+    """Quantize + encode to uint8 SLFP<3,4> codes (sign | 3-bit exponent |
+    4-bit log mantissa) in one pass, in the float32 bit domain: a plain
+    function, as JAX ``kernels/quantize.py::slfp34_pack_bits`` is (its codes
+    bit for bit).  ``sfp.slfp34_decode_bits`` reads them back."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    sign7 = (bits >> 24) & 0x80
+    ab = bits & 0x7FFFFFFF
+    lsb = (ab >> 19) & 1
+    r = (ab + 0x3FFFF + lsb) & -0x80000
+    j = (r >> 19) & 15
+    ml = j + ((sfp._ML_MAGIC >> j) & 1)
+    e = (r >> 23) - 127  # unbiased exponent
+    code7 = torch.clamp((e + 4) * 16 + ml, 0, 127)
+    code7 = torch.where(ab < _f32_bits(0.125), 16, code7)  # subnormal floor
+    code7 = torch.where(ab < _f32_bits(0.0625), 0, code7)  # pseudo-zero
+    code7 = torch.where(ab > _f32_bits(15.32165), 127, code7)
+    return (sign7 | code7).to(torch.uint8)

@@ -60,6 +60,7 @@ def _resnet_variant_scales(name: str, act: str, qbit: int):
 
 
 def create_model(name: str, qbit: int = 32, *,
+                 capture: Optional[str] = None,
                  scales: Optional[calib.ScaleSet] = None,
                  num_classes: Optional[int] = None,
                  frozen_weights: bool = False,
@@ -68,12 +69,27 @@ def create_model(name: str, qbit: int = 32, *,
                  ratio: float = 1,
                  image_size: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
-    """Build a model by the reference CLI's ``--net`` name.  ``ratio`` is
+    """Build a model by the reference CLI's ``--net`` name.  ``capture``
+    (``"absmax"`` or ``"full"``) puts every quantized layer in that
+    calibration mode (``ops.layers.set_capture``).  ``ratio`` is
     ShuffleNetV2's width plan (0.5, 1, 1.5 or 2; any other net raises on a
     ratio other than 1).  ``image_size`` fixes AlexNet's fc1 width, which
     flax infers from the first input (default: the dataset's
     ``INPUT_SIZE``).  InceptionV3 is float32 only and takes no quantization
     argument, as in JAX."""
+    model = _create(name, qbit, scales=scales, num_classes=num_classes,
+                    frozen_weights=frozen_weights,
+                    compute_dtype=compute_dtype, use_pallas=use_pallas,
+                    ratio=ratio, image_size=image_size, generator=generator)
+    if capture is not None:
+        from cnns_slfp_quantization_tpu_torch.ops.layers import set_capture
+
+        set_capture(model, capture)
+    return model
+
+
+def _create(name, qbit, *, scales, num_classes, frozen_weights,
+            compute_dtype, use_pallas, ratio, image_size, generator):
     if ratio != 1 and name not in _SHUFFLENETS:
         raise ValueError(
             f"ratio={ratio} is only supported by shufflenetv2 (got {name!r})")

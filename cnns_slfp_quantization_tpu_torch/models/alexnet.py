@@ -5,8 +5,9 @@ reference nets_imgnet/alexnet.py).
 (``fc1..fc3``), scale indices 0..7 in order; no BatchNorm.  The flatten
 before ``fc1`` keeps the reference's CHW order, whatever the memory layout,
 and ``fc1``'s input width follows the image size as flax infers it from the
-input: 256*6*6 = 9216 at 224, 256 at 64.  Dropout is the identity at
-inference.  Inputs are NHWC float32, as in JAX.
+input: 256*6*6 = 9216 at 224, 256 at 64.  Dropout (0.5) before ``fc1``
+and ``fc2`` in training, as in JAX; the identity at inference.  Inputs
+are NHWC float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from torch import nn
 
 from cnns_slfp_quantization_tpu_torch.calib import ScaleSet
 from cnns_slfp_quantization_tpu_torch.ops.layers import (
+    Dropout,
     QuantConv,
     QuantDense,
     relu,
@@ -65,6 +67,7 @@ class AlexNet(nn.Module):
             setattr(self, name, QuantDense(
                 cin, cout, ka=scales.ka[sid], kw=scales.kw[sid],
                 nonneg_input=True, layer_id=sid, **common))
+        self.drop1, self.drop2 = Dropout(0.5), Dropout(0.5)
         for m in self.modules():
             if isinstance(m, (QuantConv, QuantDense)):
                 m.reset_parameters(generator)
@@ -82,6 +85,6 @@ class AlexNet(nn.Module):
             if pool:
                 x = F.max_pool2d(x, 3, 2)
         x = torch.flatten(x, 1)  # NCHW logical order: the reference's CHW
-        x = relu(self.fc1(x))
-        x = relu(self.fc2(x))
+        x = relu(self.fc1(self.drop1(x)))
+        x = relu(self.fc2(self.drop2(x)))
         return self.fc3(x)

@@ -3,7 +3,8 @@
 
 The reference ships it unquantized: padding-1 stem convs with no stem
 pooling, ``BasicConv2d`` = conv (no bias) + BN (eps 1e-5) + ReLU, mixed
-blocks A-E, the mean over H and W, dropout (the identity at inference) and
+blocks A-E, the mean over H and W, dropout (0.5 in training, the identity
+at inference) and
 a dense classifier.  Submodules carry the flax names (``conv_1a.conv``,
 ``conv_1a.bn``, ``mixed_5b_b1``, ..., ``linear``) in flax's call order.
 Inputs are NHWC float32, as in JAX; the layers run NCHW.  The smallest
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cnns_slfp_quantization_tpu_torch.ops.layers import (
+    Dropout,
     BatchNorm2d,
     he_normal_,
     relu,
@@ -91,6 +93,7 @@ class InceptionV3(nn.Module):
         c = block("e", "mixed_7b", c)
         c = block("e", "mixed_7c", c)
         self.linear = nn.Linear(c, num_classes)
+        self.drop = Dropout(0.5)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -222,4 +225,4 @@ class InceptionV3(nn.Module):
                 x = getattr(self, name)(x)
             else:
                 x = getattr(self, f"_run_{kind}")(name, x)
-        return self.linear(torch.mean(x, dim=(2, 3)))
+        return self.linear(self.drop(torch.mean(x, dim=(2, 3))))

@@ -21,12 +21,15 @@ then runs the network on NHWC activations:
 ``policy`` chooses per 1x1 site between the hand kernel K2 (``"kernel"``,
 JAX ``"pallas"``) and a plain f32 matmul followed by K3 (``"torch"``, JAX
 ``"xla"``).  With ``conv3="torch"`` the mid-stage block outputs use K3's
-dual form (raw + quantized in one pass), which JAX proves bit-equal to its
-default placement.  ``policy["chain"]``, a set of stage indices (JAX's
-``chain``), runs every stride-1 bottleneck of those stages (blocks 1 and
-on) as one launch of K6, whose conv1 and conv2 outputs never leave the
-card's shared memory; on the card K6 takes stages 1-3 and raises for stage
-0.  The port's default is ``{2, 3}``, where JAX's is empty: each of the
+dual form (raw + quantized in one pass), bit-equal to JAX's default
+placement, the raw output with the quantize left to the consumer
+(``tests/test_torch_port_ptq.py::test_blockin_levers_match_consumer``
+holds it; the private ``_diag_blockin_fuse`` selects either).
+``policy["chain"]``, a set of stage indices (JAX's ``chain``), runs every
+stride-1 bottleneck of those stages (blocks 1 and on) as one launch of
+K6, whose conv1 and conv2 outputs never leave the card's shared memory;
+on the card K6 takes stages 1-3 and raises for stage 0.  The port's
+default is ``{2, 3}``, where JAX's is empty: each of the
 two stages served more images/s through K6 than without it at batch 64
 and 256, timed in turns on the H100 (``utils/bench_chain.py --serve``,
 PERF.md); ``frozenset()`` is JAX's placement.  Whether a kernel or its
@@ -59,6 +62,7 @@ import torch.nn.functional as F
 from cnns_slfp_quantization_tpu_torch.kernels import chain as k6
 from cnns_slfp_quantization_tpu_torch.kernels import epilogue as k3
 from cnns_slfp_quantization_tpu_torch.kernels import qmm as k2
+from cnns_slfp_quantization_tpu_torch.kernels import quantize as k1
 from cnns_slfp_quantization_tpu_torch.models.resnet50 import (
     STAGES,
     ResNet50,
@@ -275,9 +279,28 @@ def _flat(x):
     return x.reshape(-1, x.shape[-1])
 
 
+BLOCKIN_FUSE = ("consumer", "producer", "pallas_dual", "packed")
+
+
 def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
-                policy: Optional[dict] = None) -> torch.Tensor:
-    """SLFP8 ResNet-50 logits (bf16, as JAX) for NHWC float32 images."""
+                policy: Optional[dict] = None,
+                _diag_blockin_fuse: str = "pallas_dual") -> torch.Tensor:
+    """SLFP8 ResNet-50 logits (bf16, as JAX) for NHWC float32 images.
+
+    ``_diag_blockin_fuse`` is a measurement lever (JAX
+    ``resnet50_fused.py:338-375``): where conv3 runs as a plain matmul
+    (``conv3="torch"``), how a block output that is not the last of its
+    stage reaches the next block.  ``"pallas_dual"`` (the default): K3's
+    dual form writes raw and quantized in one pass; ``"consumer"``: K3
+    writes raw and the next block quantizes it (K1, or K2's prologue);
+    ``"producer"``: two K3 passes over the conv output, raw and quantized;
+    ``"packed"``: raw, then uint8 codes of it (``slfp34_pack_bits``)
+    decoded back, which sends the pseudo-zero code to 0.0 and so differs
+    from the others.
+    """
+    if _diag_blockin_fuse not in BLOCKIN_FUSE:
+        raise ValueError(f"_diag_blockin_fuse={_diag_blockin_fuse!r}: one "
+                         f"of {BLOCKIN_FUSE}")
     pol = dict(DEFAULT_POLICY, **(policy or {}))
     for key, val in pol.items():
         if key == "chain":
@@ -292,10 +315,11 @@ def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
             raise ValueError(f"policy {key}={val!r}: keys conv1/conv3 with "
                              f"values 'kernel' or 'torch', and chain")
     with backend_flags():
-        return _fused_apply(fw, x, pol)
+        return _fused_apply(fw, x, pol, _diag_blockin_fuse)
 
 
-def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict):
+def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict,
+                 blockin: str):
     rc = fw.recips
     f32, bf16 = torch.float32, torch.bfloat16
     # conv1 as a plain matmul reads f32; K2 and K6 read bf16
@@ -410,11 +434,25 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict):
                 xr_raw = q if qn is not None else raw
                 xr_q = q
             else:
-                xr_raw, xr_q = k3.bn_epilogue(  # the dual form
-                    y3, c3.scale, c3.shift, identity=identity, relu=True,
-                    quant_recip=rc[qn],
-                    q_dtype=bf16 if s_idx in pol["chain"] else c1_dt,
-                    ftz=c3.ftz)
+                q_dt = bf16 if s_idx in pol["chain"] else c1_dt
+                post = dict(identity=identity, relu=True, ftz=c3.ftz)
+                if blockin == "pallas_dual":
+                    xr_raw, xr_q = k3.bn_epilogue(  # the dual form
+                        y3, c3.scale, c3.shift, quant_recip=rc[qn],
+                        q_dtype=q_dt, **post)
+                else:
+                    xr_raw, _ = k3.bn_epilogue(y3, c3.scale, c3.shift,
+                                               **post)
+                    xr_q = None
+                if blockin == "producer":
+                    _, xr_q = k3.bn_epilogue(
+                        y3, c3.scale, c3.shift, emit_raw=False,
+                        quant_recip=rc[qn], q_dtype=q_dt, **post)
+                elif blockin == "packed":
+                    codes = k1.slfp34_pack_bits(xr_raw.to(f32) * torch.tensor(
+                        np.float32(rc[qn]), device=xr_raw.device))
+                    # the codebook's values as bf16 (JAX ``_wv(codes)``)
+                    xr_q = sfp.slfp34_decode_bits(codes).to(bf16).to(q_dt)
 
     # --- head: global average pool + quantized FC --------------------------
     xa = torch.mean(xr_raw.to(torch.float32), dim=(1, 2))

@@ -4,8 +4,9 @@
 All Fire-module convs and the final 1x1 classifier conv are biased
 quantized convs.  Scale indices: 0 stem; Fire f (f = 0..7) uses 1+3f
 (squeeze), 2+3f (expand1x1), 3+3f (expand3x3); the classifier conv is 25.
-No BatchNorm.  Max pools in ceil mode before fires 0, 3 and 7; dropout is
-the identity at inference.  Submodules carry the flax names (``conv0``,
+No BatchNorm.  Max pools in ceil mode before fires 0, 3 and 7; dropout
+(0.5) before the classifier in training, the identity at inference.
+Submodules carry the flax names (``conv0``,
 ``fire{f}_squeeze|expand1|expand3``, ``classifier``) in flax's call order.
 Inputs are NHWC float32, as in JAX; the layers run NCHW views in
 channels_last memory.
@@ -20,7 +21,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from cnns_slfp_quantization_tpu_torch.calib import ScaleSet
-from cnns_slfp_quantization_tpu_torch.ops.layers import QuantConv, relu
+from cnns_slfp_quantization_tpu_torch.ops.layers import (
+    Dropout,
+    QuantConv,
+    relu,
+)
 
 FIRE_PLAN = [  # (squeeze, expand1x1, expand3x3), JAX squeezenet.py:23-27
     (16, 64, 64), (16, 64, 64), (32, 128, 128),
@@ -63,6 +68,7 @@ class SqueezeNet(nn.Module):
             setattr(self, f"fire{f}_expand3", conv(sid + 2, sq, e3, 3, pad=1))
             in_ch = e1 + e3
         self.classifier = conv(25, in_ch, num_classes, 1)
+        self.drop = Dropout(0.5)
         for m in self.modules():
             if isinstance(m, QuantConv):
                 m.reset_parameters(generator)
@@ -84,5 +90,5 @@ class SqueezeNet(nn.Module):
             a = relu(getattr(self, f"fire{f}_expand1")(x))
             b = relu(getattr(self, f"fire{f}_expand3")(x))
             x = torch.cat([a, b], dim=1)
-        x = relu(self.classifier(x))
+        x = relu(self.classifier(self.drop(x)))
         return torch.mean(x, dim=(2, 3))

@@ -23,6 +23,18 @@ weights are uint8 codes, the compute dtype is bf16 and the input lies on the
 card, ``False`` never.  K4 reads the ``[N, K]`` storage of the weight as it
 is (``weight.t()`` is a view), so nothing is copied or transposed per
 forward, and returns the layer's output with no second rescale.
+
+Calibration capture (JAX's ``capture=`` sows), set per layer by
+:func:`set_capture` (``models.create_model(..., capture=...)`` calls it)
+and read by :func:`captured`: ``"absmax"`` keeps ``max|x|`` of the raw
+input, ``max|kernel|`` of the float weight and ``max|y|`` of the output
+after the rescale and the cast, as 0-d float32 tensors on the layer's
+device under the tags ``in{id}``, ``w{id}`` and ``out{id}``, reduced with
+max from 0 over the calls since the last :func:`reset_capture`;
+``"full"`` appends ``input_q``, ``weight_q``, ``input_raw`` and
+``nonneg_hint`` at each call.  Under a capture a layer takes neither K4
+nor the fused bf16 quantizer (K1): its input quantize is
+``quantize_act(x / Ka)`` in float32, as JAX's is.
 """
 
 from __future__ import annotations
@@ -86,6 +98,8 @@ class _QuantBase(nn.Module):
         self.compute_dtype = compute_dtype
         self.layer_id = layer_id
         self.use_pallas = use_pallas
+        self.capture = None        # None | "absmax" | "full" (set_capture)
+        self.captured = {}
         self._k4_pad = None        # K4's padded operands (k4_args)
         # JAX's weight quotient ``kernel / kw`` divides by a constant, which
         # XLA computes as ``kernel * f32(1/kw)``: the port multiplies by the
@@ -120,7 +134,8 @@ class _QuantBase(nn.Module):
     def input_q(self, x: torch.Tensor) -> torch.Tensor:
         """``Q_act(x / Ka)`` as the float32 operand cuDNN and the matmuls
         read, holding compute-dtype values."""
-        if self.compute_dtype == torch.bfloat16 and self.qbit in (7, 8):
+        if (self.compute_dtype == torch.bfloat16 and self.qbit in (7, 8)
+                and self.capture is None):
             # K1 on the card, its plain version on the CPU, with JAX's STE
             # gradient; it writes the bf16 values as float32 itself, so no
             # copy widens them
@@ -130,17 +145,26 @@ class _QuantBase(nn.Module):
                 return sfp.fused_scale_quant_act_bf16(_nhwc(x), *args).permute(
                     0, 3, 1, 2)
             return sfp.fused_scale_quant_act_bf16(x.contiguous(), *args)
-        xq = sfp.quantize_act(x * self.rka32, self.qbit)
+        xq = sfp.quantize_act(x.to(torch.float32) * self.rka32, self.qbit)
         if self.compute_dtype is not None:
             # bf16 values, float32 sums (the JAX preferred_element_type=f32)
             xq = xq.to(self.compute_dtype)
         return xq.to(torch.float32)
 
     def operands(self, x):
+        if self.capture == "absmax":
+            self._absmax("in", x)
+            self._absmax("w", self.weight)
         wq = self.weight_q()
+        xq = self.input_q(x)
+        if self.capture == "full":
+            for key, v in (("input_q", xq), ("weight_q", wq),
+                           ("input_raw", x),
+                           ("nonneg_hint", self.nonneg_input)):
+                self.captured.setdefault(key, []).append(v)
         if self.compute_dtype is not None:
             wq = wq.to(self.compute_dtype)
-        return self.input_q(x), wq.to(torch.float32)
+        return xq, wq.to(torch.float32)
 
     def rescale(self, y: torch.Tensor) -> torch.Tensor:
         if self.bias is not None:
@@ -149,7 +173,16 @@ class _QuantBase(nn.Module):
         y = y * self.kaw32
         if self.compute_dtype is not None:
             y = y.to(self.compute_dtype)
+        if self.capture == "absmax":
+            self._absmax("out", y)
         return y
+
+    def _absmax(self, tag: str, v: torch.Tensor) -> None:
+        """JAX ``_sow_absmax``: ``max|v|`` as float32, reduced with max."""
+        key = tag if self.layer_id is None else f"{tag}{self.layer_id}"
+        m = v.detach().abs().max().to(torch.float32)
+        cur = self.captured.get(key)
+        self.captured[key] = m if cur is None else torch.maximum(cur, m)
 
     def k4_args(self, pad: bool):
         """K4's ``[K, N]`` weight operand (the transpose of the layer's
@@ -183,6 +216,8 @@ class _QuantBase(nn.Module):
         return wp, dict(args, bias=bias, n_out=n)
 
     def k4_wanted(self, x: torch.Tensor) -> bool:
+        if self.capture is not None:
+            return False
         return self.use_pallas is True or (
             self.use_pallas is None and self.weight.dtype == torch.uint8
             and self.compute_dtype == torch.bfloat16 and x.is_cuda)
@@ -268,6 +303,32 @@ class QuantDense(_QuantBase):
             return fused_matmul.quant_dense(x, w, **args)
         xq, wq = self.operands(x)
         return self.rescale(xq @ wq.t())
+
+
+def set_capture(model: nn.Module, capture: Optional[str]) -> nn.Module:
+    """Set every quantized layer's capture mode (None, ``"absmax"`` or
+    ``"full"``) and empty its store."""
+    if capture not in (None, "absmax", "full"):
+        raise ValueError(f"capture={capture!r}: None, 'absmax' or 'full'")
+    for m in model.modules():
+        if isinstance(m, _QuantBase):
+            m.capture = capture
+            m.captured = {}
+    return model
+
+
+def reset_capture(model: nn.Module) -> None:
+    """Empty every quantized layer's store (a new forward's collection)."""
+    for m in model.modules():
+        if isinstance(m, _QuantBase):
+            m.captured = {}
+
+
+def captured(model: nn.Module) -> dict:
+    """The stores of the model's quantized layers, by the layer's module
+    name: JAX's ``calib`` / ``intermediates`` collection of one apply."""
+    return {name: dict(m.captured) for name, m in model.named_modules()
+            if isinstance(m, _QuantBase) and m.captured}
 
 
 class LayeroutQuant(nn.Module):

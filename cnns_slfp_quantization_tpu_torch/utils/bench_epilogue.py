@@ -71,6 +71,10 @@ FORMS = {
     "q_norelu": dict(relu=False, emit_raw=False, quant=True),
     "q_res": dict(relu=True, emit_raw=False, quant=True, identity=True),
     "dual": dict(relu=True, quant=True, identity=True),
+    # ResNet-50's conv3 post with the quantize left to the consumer (the
+    # last block under conv3="torch"; every block output under the
+    # consumer placement, resnet50_fused._diag_blockin_fuse)
+    "raw_res": dict(relu=True, identity=True),
 }
 
 

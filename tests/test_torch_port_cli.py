@@ -2,8 +2,9 @@
 SLFP8 DSGD training on synthetic data writes JAX's metric names and the
 checkpoints, a best checkpoint reloads to the same Precision@1, ``--resume``
 continues bit-identically to an uninterrupted run (JAX
-tests/test_resume.py:53), and the flags not ported yet raise.  Also the
-import guard over the port's new packages.
+tests/test_resume.py:53), the mesh flags (not ported yet) raise, and so
+does a dataset directory that holds no CIFAR.  Also the import guard over
+the port's new packages.
 """
 
 import ast
@@ -83,7 +84,6 @@ def test_cli_resume_continues_bit_identically(tmp_path):
 
 
 @pytest.mark.parametrize("flags, match", [
-    (["--pre_reference"], "Queue 1 item 6"),
     (["--mesh_data", "2"], "Queue 1 item 9"),
     (["--mesh_model", "2"], "Queue 1 item 9"),
 ])
@@ -93,9 +93,12 @@ def test_cli_unported_flags_raise(tmp_path, flags, match):
 
 
 def test_cli_dataset_on_disk_raises(tmp_path):
+    """Without --synthetic the driver reads CIFAR from --data_dir
+    (``data/cifar.py``); a directory without it raises, naming the file."""
     args = [a for a in COMMON if a != "--synthetic"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cli.main([*args, "--root_dir", str(tmp_path)])
+    with pytest.raises(FileNotFoundError, match="cifar-100-python"):
+        cli.main([*args, "--root_dir", str(tmp_path), "--data_dir",
+                  str(tmp_path / "no_data")])
 
 
 def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
