@@ -7,11 +7,22 @@ save, with JAX's flags and its divergences from the reference (no stale
 ``optimizer.step()`` before each epoch; ``>=`` for the best checkpoint;
 ``--save_state`` / ``--resume`` with a ``.meta.json`` sidecar).
 
-``--device`` (default ``cuda``; ``--use_gpu`` names the index) is where the
-model, the batches and the optimizer state live; ``cuda`` without a card
-raises.  ``--pre_reference`` calibrates (:func:`run_calibration`) and
-returns.  Not ported yet, and raising ``NotImplementedError`` with their
-ROADMAP item: ``--mesh_data`` / ``--mesh_model`` (Queue 1 item 9).
+``--device`` (default ``cuda``; ``--use_gpu`` names the index, which is
+``LOCAL_RANK`` under ``torchrun``) is where the model, the batches and the
+optimizer state live; ``cuda`` without a card raises.
+``--pre_reference`` calibrates (:func:`run_calibration`) and returns.
+
+``--mesh_data`` / ``--mesh_model`` run the same loop over a ``("data",
+"model")`` mesh (``parallel/``): launch the driver in ``data * model``
+processes with ``torchrun`` (the collective backend follows ``--device``:
+NCCL on the card, gloo on the CPU; a caller that has joined a group
+itself keeps its backend); a mesh whose size is not the world size
+raises.  Every rank builds the
+same weights, then keeps its shard; each batch is split over the data
+axis (:class:`PlacedBatches`), the nodes of a multi-node run reading the
+stream round robin (``parallel/multihost.py``).  Checkpoints are gathered
+to full tensors and written by rank 0 (:func:`_save_gathered`); ``--resume``
+loads full tensors before sharding them.
 """
 
 from __future__ import annotations
@@ -23,9 +34,12 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cnns_slfp_quantization_tpu_torch import calib, models
 from cnns_slfp_quantization_tpu_torch.calib import calibrate as calibrate_lib
+from cnns_slfp_quantization_tpu_torch.parallel import make_mesh, multihost
+from cnns_slfp_quantization_tpu_torch.parallel import steps as psteps
 from cnns_slfp_quantization_tpu_torch.train import checkpoint, loop, optimizers
 from cnns_slfp_quantization_tpu_torch.utils.logging import MetricLogger
 
@@ -72,7 +86,8 @@ def add_common_args(parser):
     # nothing, so the flag is accepted for CLI parity and ignored
     parser.add_argument("--jax_cache", type=str, default="")
     parser.add_argument("--use_gpu", type=str, default="0",
-                        help="CUDA device index under --device cuda")
+                        help="CUDA device index under --device cuda "
+                             "(under torchrun: LOCAL_RANK)")
     parser.add_argument("--cluster", action="store_true", default=False)
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"])
@@ -80,20 +95,41 @@ def add_common_args(parser):
 
 def configure_runtime(cfg) -> torch.device:
     """The run's device (raising without a card under ``cuda``) and the
-    flags: ``--debug_nans`` turns on autograd's anomaly detection; the
-    unported mesh flags raise here, before anything is built."""
-    if cfg.mesh_data or cfg.mesh_model > 1:
-        raise NotImplementedError(
-            "--mesh_data / --mesh_model: the port has no mesh yet (ROADMAP "
-            "Queue 1 item 9)")
+    flags: ``--debug_nans`` turns on autograd's anomaly detection; under
+    ``torchrun`` (``WORLD_SIZE`` > 1) the process joins the group."""
     if cfg.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     if cfg.device == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
+        device = torch.device("cpu")
+    elif not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device; pass --device cpu "
                            "to run on the CPU")
-    return torch.device(f"cuda:{int(cfg.use_gpu)}")
+    else:
+        device = torch.device(
+            f"cuda:{int(os.environ.get('LOCAL_RANK', cfg.use_gpu))}")
+        torch.cuda.set_device(device)
+    multihost.initialize(device_type=device.type)
+    return device
+
+
+def build_mesh(cfg, device: torch.device):
+    """The ``("data", "model")`` mesh of ``--mesh_data`` / ``--mesh_model``
+    (None if both are left at their defaults: the single-device path).
+    ``data * model`` must be the world size."""
+    md, mm = getattr(cfg, "mesh_data", 0), getattr(cfg, "mesh_model", 1)
+    if not md and mm <= 1:
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    data = md or world // mm
+    if data * mm != world:
+        raise ValueError(
+            f"--mesh_data {md} x --mesh_model {mm}, but the world size is "
+            f"{world}: launch the driver in data x model processes "
+            f"(torchrun --nproc_per_node N -m ...)")
+    mesh = make_mesh(data=data, model=mm, device_type=device.type)
+    print(f"==> device mesh data={data} model={mm} ({world} rank(s), "
+          f"{multihost.process_count()} node(s))")
+    return mesh
 
 
 def build_model(cfg, net: str, device: torch.device, image_size=None):
@@ -162,6 +198,51 @@ def _state_meta_path(state_path: str) -> str:
     return str(state_path).rstrip("/") + ".meta.json"
 
 
+class PlacedBatches:
+    """Re-iterable stream of numpy batches split over a mesh: each rank
+    yields its rows of every batch (``multihost.global_batch``), and with
+    several nodes each node keeps every ``process_count``-th batch of its
+    stream, so the global batch is the node batch times the nodes."""
+
+    def __init__(self, batches, mesh):
+        self._batches = batches
+        self._mesh = mesh
+
+    def __len__(self):
+        return len(self._batches) // multihost.process_count()
+
+    def __iter__(self):
+        it = iter(self._batches)
+        if multihost.process_count() > 1:
+            # total=len(...) truncates the ragged tail, so that every node
+            # steps the same number of times
+            it = multihost.shard_data_iterator(it, total=len(self._batches))
+        for images, labels in it:
+            yield multihost.global_batch(self._mesh, np.asarray(images),
+                                         np.asarray(labels))
+
+
+class _NullLogger:
+    def scalar(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
+def _save_gathered(path, state: dict, model, mesh) -> None:
+    """Checkpoint a state whose tensors may be shards: gathered to full
+    tensors (``parallel.steps.gathered``), written by rank 0, then a
+    barrier so that no rank reads it early."""
+    if mesh is None:
+        checkpoint.save(path, state)
+        return
+    full = psteps.gathered(state, model, mesh)
+    if dist.get_rank() == 0:
+        checkpoint.save(path, full)
+    dist.barrier()
+
+
 class DeviceBatches:
     """Re-iterable stream of numpy ``(images, labels)`` batches as tensors on
     ``device`` (labels int64)."""
@@ -181,13 +262,39 @@ class DeviceBatches:
                        self._device, non_blocking=True))
 
 
+def _first_images(batches, n: int) -> list:
+    """The stream cut to its first ``n`` images (the last batch sliced), as
+    ``loop.evaluate``'s ``max_images`` counts them."""
+    out, seen = [], 0
+    for images, labels in batches:
+        if seen >= n:
+            break
+        keep = min(len(images), n - seen)
+        out.append((images[:keep], labels[:keep]))
+        seen += keep
+    return out
+
+
 def run_main_loop(cfg, model, train_batches, eval_batches, *, device,
                   max_epochs, log_dir, ckpt_path, steps_per_epoch,
                   milestones=(75, 85, 100), eval_max_images=None,
                   has_dropout=False):
     """Epoch loop (cifar100_train_eval.py:303-320); returns the train state
-    and the accuracy of each epoch."""
-    logger = MetricLogger(log_dir)
+    and the accuracy of each epoch.  Under a mesh (:func:`build_mesh`) the
+    same loop runs on every rank, each on its rows of every batch, and
+    rank 0 alone logs and writes."""
+    mesh = build_mesh(cfg, device)
+    lead = mesh is None or dist.get_rank() == 0
+    logger = MetricLogger(log_dir) if lead else _NullLogger()
+    if mesh is not None:
+        if eval_max_images is not None:
+            eval_batches = _first_images(eval_batches, eval_max_images)
+            eval_max_images = None
+        train_batches = PlacedBatches(train_batches, mesh)
+        eval_batches = PlacedBatches(eval_batches, mesh)
+        # a multi-node run takes len // nodes steps an epoch: the LR
+        # schedule, the resumed epoch and the sidecar read this length
+        steps_per_epoch = max(len(train_batches), 1)
     train_batches = DeviceBatches(train_batches, device)
     eval_batches = DeviceBatches(eval_batches, device)
     lr_sched = loop.multistep_lr(cfg.lr, milestones, 0.1, steps_per_epoch)
@@ -216,6 +323,10 @@ def run_main_loop(cfg, model, train_batches, eval_batches, *, device,
                     f"with the original run", stacklevel=2)
     train_step = loop.make_train_step(model, opt, has_dropout)
     eval_step = loop.make_eval_step(model)
+    if mesh is not None:
+        psteps.shard_state(state, mesh)
+        train_step = psteps.jit_train_step(train_step)
+        eval_step = psteps.jit_eval_step(eval_step, mesh)
 
     acc_data, acc_max = [], float(resumed_meta.get("acc_max", 0.0))
     # resume continues the epoch numbering from the restored step, so the
@@ -240,13 +351,15 @@ def run_main_loop(cfg, model, train_batches, eval_batches, *, device,
         # must still leave a best checkpoint under --save_model
         if cfg.save_model and acc >= acc_max:
             acc_max = acc
-            checkpoint.save(ckpt_path, {"model": model.state_dict()})
+            _save_gathered(ckpt_path, {"model": model.state_dict()}, model,
+                           mesh)
             print(f"max acc : {acc_max}\nsaving model....")
         if cfg.save_state:
             state_path = ckpt_path + "_state"
-            checkpoint.save(state_path, state.state_dict())
-            with open(_state_meta_path(state_path), "w") as f:
-                json.dump({"steps_per_epoch": steps_per_epoch,
-                           "acc_max": acc_max, "epoch": epoch}, f)
+            _save_gathered(state_path, state.state_dict(), model, mesh)
+            if lead:
+                with open(_state_meta_path(state_path), "w") as f:
+                    json.dump({"steps_per_epoch": steps_per_epoch,
+                               "acc_max": acc_max, "epoch": epoch}, f)
     logger.close()
     return state, acc_data

@@ -48,6 +48,10 @@ the stage inputs, which K2's conv1 reads too (or K6's output, which it
 writes in bf16 only).  The K3 epilogues take their FTZ route when
 :func:`prepare` finds no subnormal scale, shift or reciprocal
 (``ConvKxK.ftz``).
+
+Under a mesh the engine gives each rank its rows of the batch (the data
+axis); over a model axis :func:`shard_weights` keeps each rank's
+out-channel shards, which every forward gathers for the hand kernels.
 """
 
 from __future__ import annotations
@@ -70,6 +74,8 @@ from cnns_slfp_quantization_tpu_torch.models.resnet50 import (
 )
 from cnns_slfp_quantization_tpu_torch.ops import sfp
 from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
+from cnns_slfp_quantization_tpu_torch.parallel import comm
+from cnns_slfp_quantization_tpu_torch.parallel import mesh as mesh_lib
 
 DEFAULT_POLICY = {"conv1": "kernel", "conv3": "kernel",
                   "chain": frozenset({2, 3})}
@@ -107,6 +113,9 @@ class ConvKxK:
     # K3's route for this conv's epilogue (k3.ftz_route), decided when the
     # weights are laid out; None decides it at each call (a device sync)
     ftz: Optional[bool] = None
+    # the model group whose ranks hold the other out-channel shards of w:
+    # the conv's output channels are gathered over it
+    tp_group: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -122,6 +131,8 @@ class FusedWeights:
     # values) and route, laid out at the first forward that runs the block
     # on K6
     chain: dict = dataclasses.field(default_factory=dict)
+    # the mesh whose model axis the tensors are sharded over (shard_weights)
+    mesh: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -142,10 +153,13 @@ def _chain_weights(fw: FusedWeights, pre: str, recips) -> ChainWeights:
         blk = fw.blocks[pre]
         affines = [getattr(blk[c], f) for c in ("conv1", "conv2", "conv3")
                    for f in ("scale", "shift")]
+        w2 = blk["conv2"].w
+        if blk["conv2"].tp_group is not None:   # a model-sharded forward
+            w2 = comm.all_gather_cat(w2.contiguous(), 0,
+                                     blk["conv2"].tp_group)
         cw = ChainWeights(
             w1=_bf16_values(blk["conv1"].w).contiguous(),
-            w2=blk["conv2"].w.permute(2, 3, 1, 0).to(
-                torch.bfloat16).contiguous(),
+            w2=w2.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous(),
             w3=_bf16_values(blk["conv3"].w).contiguous(),
             ftz=k6.ftz_route(affines, recips))
         fw.chain[pre] = cw
@@ -242,12 +256,68 @@ def prepare(model: ResNet50, *, device="cuda") -> FusedWeights:
         kaw53=torch.tensor(k53, device=device), recips=recips)
 
 
+def shard_weights(fw: FusedWeights, mesh) -> FusedWeights:
+    """What a rank of ``mesh`` stores of ``fw``: every conv's out-channel
+    shard over the model axis (the weight's output channels and their
+    folded affine), and the classifier's.  :func:`fused_apply` then runs
+    as GSPMD places JAX's executor, a custom call being unpartitionable:
+    each forward gathers the weights of the hand kernels (K2, K6 and the
+    affines K3 reads) and runs them whole on the rank's rows, while each
+    cuDNN convolution computes its out-channel shard and gathers the
+    channels.  The classifier's weight is gathered too."""
+
+    def cut(t, dim=0):
+        return mesh_lib.local_shard(t, (None,) * dim + ("model",), mesh)
+
+    def conv(c):
+        if isinstance(c, Conv1x1):
+            return dataclasses.replace(c, w=cut(c.w.t()).t(),
+                                       scale=cut(c.scale), shift=cut(c.shift))
+        return dataclasses.replace(
+            c, w=cut(c.w).contiguous(memory_format=torch.channels_last),
+            scale=cut(c.scale), shift=cut(c.shift))
+
+    return dataclasses.replace(
+        fw, stem=conv(fw.stem),
+        blocks={pre: {k: conv(c) for k, c in blk.items()}
+                for pre, blk in fw.blocks.items()},
+        fc_w=cut(fw.fc_w, 1), fc_b_over_kaw=cut(fw.fc_b_over_kaw), chain={},
+        mesh=mesh)
+
+
+def _gathered(fw: FusedWeights) -> FusedWeights:
+    """The weights one forward of a model-sharded ``fw`` runs on (see
+    :func:`shard_weights`)."""
+    group = fw.mesh.get_group("model")
+
+    def full(t, dim=0):
+        return comm.all_gather_cat(t, dim, group)
+
+    def conv(c):
+        if isinstance(c, Conv1x1):
+            return dataclasses.replace(c, w=full(c.w.t()).t(),
+                                       scale=full(c.scale),
+                                       shift=full(c.shift))
+        return dataclasses.replace(c, scale=full(c.scale),
+                                   shift=full(c.shift), tp_group=group)
+
+    return dataclasses.replace(
+        fw, stem=conv(fw.stem),
+        blocks={pre: {k: conv(c) for k, c in blk.items()}
+                for pre, blk in fw.blocks.items()},
+        fc_w=full(fw.fc_w, 1), fc_b_over_kaw=full(fw.fc_b_over_kaw),
+        chain={}, mesh=None)
+
+
 def _conv_f32(xq: torch.Tensor, c: ConvKxK) -> torch.Tensor:
     """NHWC bf16 values (as float32, or bf16 widened here) -> NHWC float32
     conv output (cuDNN, channels last)."""
     x = xq.to(torch.float32).permute(0, 3, 1, 2)
     y = F.conv2d(x, c.w, stride=c.stride, padding=c.pad, groups=c.groups)
-    return y.permute(0, 2, 3, 1).contiguous()
+    y = y.permute(0, 2, 3, 1).contiguous()
+    if c.tp_group is not None:
+        y = comm.all_gather_cat(y, -1, c.tp_group)
+    return y
 
 
 def _mm_f32(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -315,6 +385,8 @@ def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
             raise ValueError(f"policy {key}={val!r}: keys conv1/conv3 with "
                              f"values 'kernel' or 'torch', and chain")
     with backend_flags():
+        if fw.mesh is not None:
+            fw = _gathered(fw)
         return _fused_apply(fw, x, pol, _diag_blockin_fuse)
 
 

@@ -53,9 +53,16 @@ def full_f32_matmul():
 def exact_f32():
     """cuDNN convolutions and float32 matmuls in full float32 (no TF32),
     restored after: the training step's backward reads float32 cotangents,
-    which TF32 would round to 10 mantissa bits."""
+    which TF32 would round to 10 mantissa bits.  cuDNN's algorithms are the
+    deterministic ones (``cudnn.flags`` otherwise sets ``deterministic=
+    False`` for its scope): two train steps of CIFAR mobilenet at batch
+    256 from one state gave different weights without it and the same bits
+    with it, on an H100 (``chip_smoke.py``'s determinism phase).  The
+    step's other ops were deterministic there without
+    ``torch.use_deterministic_algorithms``."""
     matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
             yield

@@ -351,7 +351,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     in float32 whatever the stream's type, the *biased* variance
     ``max(0, E[x^2] - E[x]^2)`` (torch's own keeps the unbiased one in its
     running variance), ``ra = 0.9 * ra + 0.1 * batch``, and the output in
-    x's type."""
+    x's type.  Under a data axis (``data_group``, set by
+    ``parallel.mesh.shard_module``) ``E[x]`` and ``E[x^2]`` are the global
+    batch's: the ranks' means averaged over the group, as GSPMD reduces
+    JAX's over the sharded batch."""
+
+    data_group = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -361,8 +366,13 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         x32 = x.to(torch.float32)
         mean = x32.mean(dim=(0, 2, 3))
-        var = torch.clamp(x32.square().mean(dim=(0, 2, 3)) - mean.square(),
-                          min=0.0)
+        ex2 = x32.square().mean(dim=(0, 2, 3))
+        if self.data_group is not None:
+            from cnns_slfp_quantization_tpu_torch.parallel import comm
+
+            mean, ex2 = comm.all_reduce_mean(
+                torch.cat([mean, ex2]), self.data_group).chunk(2)
+        var = torch.clamp(ex2 - mean.square(), min=0.0)
         with torch.no_grad():
             self.running_mean.copy_(0.9 * self.running_mean
                                     + 0.1 * mean.detach())
@@ -379,14 +389,20 @@ class Dropout(nn.Dropout):
     """flax ``Dropout``: in training mode keep each element with
     probability ``1 - p`` and scale it by ``1 / (1 - p)``, drawing from
     ``generator`` when one is set (the training loop sets it per step);
-    the identity in eval mode."""
+    the identity in eval mode.  Under a data axis (``data_shard``, the
+    rank's index and the axis size, set by ``parallel.mesh.shard_module``)
+    it draws the global batch's mask and keeps its rows, so a sharded step
+    drops what the single-device step drops."""
 
     generator: Optional[torch.Generator] = None
+    data_shard: Optional[tuple] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        n = x.shape[0]
+        i, size = self.data_shard or (0, 1)
+        mask = torch.rand((n * size, *x.shape[1:]), generator=self.generator,
+                          device=x.device)[i * n:(i + 1) * n] < keep
         return torch.where(mask, x / keep, 0.0).to(x.dtype)

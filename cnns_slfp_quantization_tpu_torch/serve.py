@@ -25,6 +25,16 @@ ending in ``.pth`` is a reference PyTorch state_dict, matched by position
 as JAX's ``load_pth`` matches it.  The engine runs on ``device="cuda"``
 unless the caller asks for ``device="cpu"``; without a card the default
 raises.
+
+``mesh=`` (``parallel.make_mesh``) serves over a ``("data", "model")``
+mesh, every rank building the engine with the same arguments:
+``batch_size`` is the global batch and each rank runs its ``batch_size //
+data`` rows; ``predict`` / ``classify`` return the whole batch's on every
+rank, as JAX returns a global array.  Over a model axis the fused
+ResNet-50 executor keeps out-channel shards (``resnet50_fused.
+shard_weights``) and the module path shards its layers
+(``parallel.mesh.shard_module``); the fused MobileNetV1 and ShuffleNetV2
+executors take the data axis only.
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ import torch
 from cnns_slfp_quantization_tpu_torch import calib, models
 from cnns_slfp_quantization_tpu_torch.ops import freeze
 from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
+from cnns_slfp_quantization_tpu_torch.parallel import comm
+from cnns_slfp_quantization_tpu_torch.parallel import mesh as mesh_lib
+from cnns_slfp_quantization_tpu_torch.parallel.steps import place_rows
 from cnns_slfp_quantization_tpu_torch.train import checkpoint as ckpt_lib
 
 # nets with a fused executor -> its module (JAX serve.py:63-70): CIFAR
@@ -81,6 +94,7 @@ class InferenceEngine:
         device: str = "cuda",
         seed: int = 0,
         generator: Optional[torch.Generator] = None,
+        mesh=None,
     ):
         """``checkpoint``: a reference PyTorch state_dict (a path ending in
         ``.pth``, read by :func:`train.checkpoint.load_pth`), or else a
@@ -125,6 +139,20 @@ class InferenceEngine:
         self.fused = fused
         self.qbit = qbit
         self.batch_size = batch_size
+        self.mesh = mesh
+        model_axis = 1
+        if mesh is not None:
+            data = mesh_lib.axis_size(mesh, "data")
+            model_axis = mesh_lib.axis_size(mesh, "model")
+            if batch_size % data:
+                raise ValueError(f"batch size {batch_size} not divisible by "
+                                 f"the data-parallel mesh axis ({data})")
+            if fused and model_axis > 1 and FUSABLE[net] != "resnet50_fused":
+                raise NotImplementedError(
+                    f"the fused {FUSABLE[net]} executor takes the data axis "
+                    f"only (ROADMAP Queue 1: the fused MobileNetV1 / "
+                    f"ShuffleNetV2 executors under a model axis); serve "
+                    f"{net!r} with fused=False over a model axis")
         self.image_size = image_size or default_image_size(net)
         self.policy = policy
         if generator is None:
@@ -152,10 +180,14 @@ class InferenceEngine:
             executor = importlib.import_module(
                 f"cnns_slfp_quantization_tpu_torch.models.{FUSABLE[net]}")
             self.executor = executor.prepare(model, device=self.device)
+            if model_axis > 1:
+                self.executor = executor.shard_weights(self.executor, mesh)
             self._forward = lambda x: executor.fused_apply(
                 self.executor, x, policy=self.policy)
         else:
             self.model = model.to(self.device)
+            if model_axis > 1:
+                mesh_lib.shard_module(self.model, mesh)
             self._forward = (self._quantized_module if qbit in (7, 8)
                              else self.model)
 
@@ -168,7 +200,8 @@ class InferenceEngine:
             return self.model(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits for an NHWC float32 batch already on the engine's device."""
+        """Logits for an NHWC float32 batch already on the engine's device
+        (under a mesh: the rank's rows)."""
         with torch.inference_mode():
             return self._forward(x)
 
@@ -184,7 +217,12 @@ class InferenceEngine:
             if pad:
                 chunk = np.concatenate(
                     [chunk, np.zeros((pad,) + chunk.shape[1:], np.float32)])
-            y = self.forward(torch.from_numpy(chunk).to(self.device))
+            xb = torch.from_numpy(chunk).to(self.device)
+            if self.mesh is None:
+                y = self.forward(xb)
+            else:
+                y = comm.gather_rows(self.forward(place_rows(self.mesh, xb)),
+                                     self.mesh)
             out.append(y[:self.batch_size - pad].float().cpu().numpy())
         return np.concatenate(out)[:n]
 
@@ -193,10 +231,17 @@ class InferenceEngine:
         return np.argmax(self.predict(images), axis=-1)
 
     def throughput(self, iters: int = 16) -> float:
-        """Images per second at the fixed batch size, timed on the card."""
+        """Images per second at the fixed batch size, timed on the card;
+        under a mesh each rank times its share and every rank returns the
+        global batch over the slowest rank's time."""
         from cnns_slfp_quantization_tpu_torch.utils.profiling import throughput
 
-        x = torch.zeros((self.batch_size, self.image_size, self.image_size,
-                         3), dtype=torch.float32, device=self.device)
-        return throughput(lambda: self.forward(x), self.batch_size,
-                          iters=iters)
+        local = self.batch_size
+        if self.mesh is not None:
+            local //= mesh_lib.axis_size(self.mesh, "data")
+        x = torch.zeros((local, self.image_size, self.image_size, 3),
+                        dtype=torch.float32, device=self.device)
+        ips = throughput(lambda: self.forward(x), local, iters=iters)
+        if self.mesh is None:
+            return ips
+        return comm.global_rate(local, ips, self.batch_size, self.mesh)

@@ -66,7 +66,15 @@ class QSGD(_Counted, torch.optim.Optimizer):
     """Momentum SGD with a rule for an extra step: ``"dsgd"``, ``"ssgd"``
     or ``"sgd"`` (none).  One parameter group.  ``track_stats`` (DSGD)
     counts the parameters whose quantized value moved (``updated``) and
-    those that got the double step (``stuck``), cumulatively."""
+    those that got the double step (``stuck``), cumulatively.  Under a
+    model axis (``model_group`` and ``sharded``, the indices of the
+    parameters that hold out-channel shards, set by
+    ``parallel.steps.shard_state``) the counts of the sharded parameters
+    are summed over the model group, so that the counters count each
+    global parameter once, as JAX's do."""
+
+    model_group = None
+    sharded: frozenset = frozenset()
 
     def __init__(self, params: Iterable, lr: ScalarOrSchedule, qbit: int,
                  rule: str, momentum: float = 0.9, dampening: float = 0.0,
@@ -105,6 +113,22 @@ class QSGD(_Counted, torch.optim.Optimizer):
             return scale, 1.0 + scale
         return None, pd.abs() + _f32(2.0, p.device)          # ssgd
 
+    def _count(self, flags, ps, sizes):
+        """The number of set ``flags`` (one per element of ``ps``,
+        flattened), each global parameter once."""
+        if self.model_group is None:
+            return flags.sum()
+        from cnns_slfp_quantization_tpu_torch.parallel import comm
+
+        all_ps = self.param_groups[0]["params"]
+        sharded = {id(all_ps[i]) for i in self.sharded}
+        parts = [f.sum() for f in flags.split(sizes)]
+        mine = sum((c for c, t in zip(parts, ps) if id(t) in sharded),
+                   flags.new_zeros((), dtype=torch.int64))
+        rep = sum((c for c, t in zip(parts, ps) if id(t) not in sharded),
+                  flags.new_zeros((), dtype=torch.int64))
+        return comm.all_reduce_sum(mine, self.model_group) + rep
+
     @torch.no_grad()
     def step(self, closure=None):
         loss = None
@@ -142,10 +166,11 @@ class QSGD(_Counted, torch.optim.Optimizer):
             d1 = d * neg_lr
             scale, factor = self._scale(p, p + d1)
             new = affine_f32(d1, factor, p)
-            if self.stats is not None and scale is not None:
-                self.stats["updated"] += (scale == 0.0).sum()
-                self.stats["stuck"] += (scale == 2.0).sum()
         sizes = [t.numel() for t in ps]
+        if self.rule != "sgd" and self.stats is not None \
+                and scale is not None:
+            self.stats["updated"] += self._count(scale == 0.0, ps, sizes)
+            self.stats["stuck"] += self._count(scale == 2.0, ps, sizes)
         torch._foreach_copy_(ps, [v.view_as(t) for v, t in
                                   zip(new.split(sizes), ps)])
         if m:

@@ -2,7 +2,10 @@
 JAX ``utils/profiling.py``).
 
 Every number here is measured on the card: a function given CPU work, or
-run where there is no card, raises instead of timing the host.
+run where there is no card, raises instead of timing the host.  The two
+``scan_*`` functions (``parallel/scaling_bench.py``) are the exception:
+given CPU tensors they time the host clock, which the CPU tests read as a
+count of images per second and nothing else.
 """
 
 from __future__ import annotations
@@ -61,6 +64,69 @@ def throughput(fn: Callable[[], object], batch: int, *, iters: int = 16,
     end.record()
     torch.cuda.synchronize()
     return batch * iters / (start.elapsed_time(end) / 1e3)
+
+
+def _best_of_3(run, device) -> float:
+    """Seconds of the fastest of three calls of ``run`` after one warm-up:
+    CUDA events on the card, the host clock on the CPU."""
+    import time
+
+    import torch
+
+    run()
+    best = float("inf")
+    for _ in range(3):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            run()
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _perturbed(x0, i: int):
+    """JAX's per-step input ``x0 * (1 + i * 1e-6)`` in x0's type."""
+    import numpy as np
+
+    return (x0.float() * np.float32(1.0 + i * 1e-6)).to(x0.dtype)
+
+
+def scan_throughput(forward: Callable, x0, *, steps: int = 8) -> float:
+    """Images per second of ``forward`` over ``steps`` calls on ``x0``
+    perturbed per call as JAX's ``scan_throughput`` perturbs it (so no call
+    repeats another's input); the fastest of three timed runs."""
+    import torch
+
+    xs = [_perturbed(x0, i) for i in range(steps)]
+
+    def run():
+        with torch.inference_mode():
+            for x in xs:
+                forward(x)
+
+    return x0.shape[0] * steps / _best_of_3(run, x0.device)
+
+
+def scan_train_throughput(train_step: Callable, state, x0, y0, *,
+                          steps: int = 8, generator=None) -> float:
+    """Images per second of ``steps`` full train steps (forward, backward,
+    optimizer) of ``train_step`` on ``x0`` perturbed per step as in JAX's
+    ``scan_train_throughput``; the fastest of three timed runs after one
+    warm-up run.  The state advances through every step."""
+    xs = [_perturbed(x0, i) for i in range(steps)]
+
+    def run():
+        for x in xs:
+            train_step(state, x, y0, generator)
+
+    return x0.shape[0] * steps / _best_of_3(run, x0.device)
 
 
 def _hand_launches() -> int:

@@ -2,15 +2,18 @@
 SLFP8 DSGD training on synthetic data writes JAX's metric names and the
 checkpoints, a best checkpoint reloads to the same Precision@1, ``--resume``
 continues bit-identically to an uninterrupted run (JAX
-tests/test_resume.py:53), the mesh flags (not ported yet) raise, and so
-does a dataset directory that holds no CIFAR.  Also the import guard over
+tests/test_resume.py:53), the mesh flags raise in one process and train
+under ``torchrun``, and a dataset directory that holds no CIFAR raises.  Also the import guard over
 the port's new packages.
 """
 
 import ast
 import json
+import os
 import pathlib
 import re
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -83,13 +86,33 @@ def test_cli_resume_continues_bit_identically(tmp_path):
                            st["momentum"]), k
 
 
-@pytest.mark.parametrize("flags, match", [
-    (["--mesh_data", "2"], "Queue 1 item 9"),
-    (["--mesh_model", "2"], "Queue 1 item 9"),
-])
-def test_cli_unported_flags_raise(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main([*COMMON, *flags, "--root_dir", str(tmp_path)])
+@pytest.mark.parametrize("case", ["one_process", "two_ranks"])
+def test_cli_unported_flags_raise(tmp_path, case):
+    """The mesh flags: in one process a mesh larger than the world raises,
+    naming the world size; under ``torchrun`` with two ranks (gloo on the
+    CPU) ``--mesh_data 2`` trains, evaluates and saves one gathered
+    checkpoint, both ranks printing the same accuracy."""
+    if case == "one_process":
+        for flags in (["--mesh_data", "2"], ["--mesh_model", "2"]):
+            with pytest.raises(ValueError, match="world size is 1"):
+                cli.main([*COMMON, *flags, "--root_dir", str(tmp_path)])
+        return
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(REPO) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m",
+         "cnns_slfp_quantization_tpu_torch.cli.cifar100_train_eval",
+         *COMMON, "--mesh_data", "2", "--save_state",
+         "--root_dir", str(tmp_path)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-4000:]
+    accs = re.findall(r"Precision@1: ([0-9.]+)%", run.stdout)
+    assert len(accs) == 2 and accs[0] == accs[1], run.stdout[-2000:]
+    assert "device mesh data=2 model=1" in run.stdout
+    saved = torch.load(f"{_ckpt(tmp_path)}_state", weights_only=True)
+    assert saved["step"] == 2
 
 
 def test_cli_dataset_on_disk_raises(tmp_path):
