@@ -134,7 +134,24 @@
      full state, reload the best (the same Precision@1), resume to epoch 2;
    - training images/s at batch 256 of routes A and B against the float32
      step in turns, route A's K1 sites held and timed, and each step's
-     device time by phase (CUDA events) and kernel class (profiler).
+     device time by phase (CUDA events) and kernel class (profiler);
+   - the CUDA graphs (``train.loop.GraphedTrainStep``,
+     ``utils/profiling.py::GraphedForward``): for routes A, B and float32
+     at batch 256, 8 replays of the captured DSGD step on inputs perturbed
+     per step give the losses, weights, momentum and BN running statistics
+     of 8 eager steps from the same state bit for bit, with the launches a
+     step counted at the capture (route A K1 28, route B K1 28 and K4 14);
+     ``scan_train_throughput`` graph against eager in turns, two rounds,
+     and each mode's idle share (``profiling.busy_ms``), the hand kernels
+     in the trace of 3 replays 3x those of the capture (a graph path's
+     launches); SqueezeNet 1.0's dropout step at 224, batch 32, captured
+     with its generator registered: 4 replays give the eager steps'
+     dropout outputs, losses, weights and momentum bit for bit, about
+     half the nonzero inputs dropped, another mask each step; fused
+     ResNet-50's forward at batch 64 as a graph (logits bit-equal to
+     eager, K1 5, K2 18, K3 14, K6 7 a replay), ``scan_throughput`` in
+     turns the same way; fused CIFAR MobileNetV1's at batch 256 (K1 2,
+     K3 18, K5 9 a replay).
    Then the PTQ workflow:
    - calibrate -> serve: the float32 ResNet-50 (the engine's seed-0
      weights, ``capture="absmax"``, exact float32) over 256 images at
@@ -161,7 +178,13 @@
      (``conv3="torch"``, K6 off, conv1 on K2 and as a plain matmul):
      ``pallas_dual`` bit-equal to ``consumer``, ``packed`` within 1e-2
      with the same top-1, ``producer`` cosine > 0.995; the consumer's 12
-     extra K1 passes a forward against K3's 12 dual launches.
+     extra K1 passes a forward against K3's 12 dual launches;
+   - ``utils/bench_quant_sites.py``'s batch-64 cases (the default policy
+     and JAX's placement): fused ResNet-50 with every quantize site, each
+     site removed (``_diag_quant_sites``) and none, every configuration's
+     logits finite, the production one bit-equal to the engine's forward,
+     its launches and graph images/s printed; K2 at the 18 calls of the
+     ceiling (raw f32 and bf16 outputs) against its plain version.
    K1 and K3 at every site of these paths are held against their plain
    versions and timed as above.
 4. A torch.profiler breakdown per forward of the ResNet-50 fused executor
@@ -199,8 +222,13 @@
      with the readings that show why printed; DSGD's counters in
      (0, 3 x params]; a 3x3
      ``spatial_conv2d`` against ``F.conv2d``; ``cifar100_train_eval
-     --mesh_data 2``; ``scaling_bench`` rows at 1 and 2 ranks.  Every rate
-     of this phase is of ranks sharing one card.
+     --mesh_data 2``; ``scaling_bench`` rows at 1 and 2 ranks; the fused
+     MobileNetV1 (ImageNet, 224) and ShuffleNetV2 (CIFAR) engines at batch
+     64 on a 1x2 mesh (out-channel shards; K1 1, K3 18, K5 9 and K1 35, K3
+     20 a forward on each rank) against an unsharded engine, cosine >
+     0.999 and the same top-1 (where the unsharded logits tie at their
+     maximum, any of the tied classes).  Every rate of this
+     phase is of ranks sharing one card.
    The K2 row also gets the calibrated engine's 18 calls a forward: device
    time, plain version, ``torch.matmul`` unfused and the bound.
 
@@ -210,7 +238,8 @@ per forward, and, per forward at batch 64 on that path, its time, its plain
 version's time, the matching PyTorch call's time where one exists, and its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over the card's peak for their type.  ``by_path`` gives the same
-per path.  The last line is ``{"ok": true, "device": {...}}``.  Any failed
+per path; a CUDA graph's path (``*_graph*``) counts its launches in the
+profiler's trace of 3 replays, where the wrappers count none.  The last line is ``{"ok": true, "device": {...}}``.  Any failed
 check exits non-zero first, and so does a run without a CUDA device or
 outside the repository.
 """
@@ -396,7 +425,7 @@ class Row:
 # GPU), each rank's results pickled for main() to check and report.  The
 # functions sit at module level so that ``spawn`` can import them.
 
-def _mesh_rank(rank, world, port, out, ka, kw):
+def _mesh_rank(rank, world, port, out, ka, kw, scales):
     sys.path.insert(0, str(REPO))
     import pickle
 
@@ -408,11 +437,12 @@ def _mesh_rank(rank, world, port, out, ka, kw):
                             world_size=world, rank=rank)
     res = {}
     try:
-        for task in (_mesh_resnet, _mesh_module, _mesh_mobilenet, _mesh_qat,
-                     _mesh_spatial, _mesh_cli, _mesh_scaling):
+        for task in (_mesh_resnet, _mesh_module, _mesh_mobilenet,
+                     _mesh_fused_tp, _mesh_qat, _mesh_spatial, _mesh_cli,
+                     _mesh_scaling):
             t0 = time.perf_counter()
             try:
-                res[task.__name__] = task(ka=ka, kw=kw)
+                res[task.__name__] = task(ka=ka, kw=kw, scales=scales)
             except Exception:
                 res[task.__name__] = {"error": traceback.format_exc()}
             res.setdefault("seconds", {})[task.__name__] = \
@@ -498,6 +528,35 @@ def _mesh_mobilenet(**_):
     got, counts = _counted_run(lambda: eng.predict(x))
     return {"got": got, "want": want, "counts": counts,
             "i": ml.axis_rank(mesh, "data")}
+
+
+def _mesh_fused_tp(scales, **_):
+    """The fused MobileNetV1 (ImageNet, 224) and CIFAR ShuffleNetV2 (32)
+    engines at batch 64 on a 1x2 mesh (out-channel shards, gathered per
+    forward) against one unsharded engine on the same images, with the
+    scales ``main`` derived for them."""
+    import torch
+
+    from cnns_slfp_quantization_tpu_torch import calib
+    from cnns_slfp_quantization_tpu_torch.parallel import make_mesh
+    from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
+
+    res = {}
+    for net, size, seed in (("mobilenetv1", 224, 6), ("shufflenetv2", 32, 7)):
+        x = np.random.default_rng(seed).standard_normal(
+            (64, size, size, 3)).astype(np.float32)
+        kw = dict(qbit=8, batch_size=64, seed=0,
+                  scales=calib.ScaleSet(*scales[net], 15.5))
+        want = InferenceEngine(net, **kw).predict(x)
+        eng = InferenceEngine(net, mesh=make_mesh(1, 2), **kw)
+        assert eng.fused and eng.executor.mesh is not None
+        eng.predict(x[:1])
+        t0 = time.perf_counter()
+        got, counts = _counted_run(lambda: eng.predict(x))
+        torch.cuda.synchronize()
+        res[net] = {"got": got, "want": want, "counts": counts,
+                    "s": time.perf_counter() - t0}
+    return res
 
 
 def _qat_setup(ka, kw, mesh=None, qbit=8, perm=None):
@@ -629,7 +688,7 @@ def _bn_statistics(model, record=None, replay=None):
             m.data_group = g
 
 
-def _mesh_qat(ka, kw):
+def _mesh_qat(ka, kw, **_):
     """CIFAR mobilenet, batch 256, one DSGD step on a 2x1 and a 1x2 mesh
     against the single-rank step: float32, and SLFP8 route B (K4 with its
     STE backward, K1; under 1x2 K4 on the column shards).  Beside them,
@@ -1599,6 +1658,19 @@ def main() -> int:
 
     def same_top1(a, b):
         return bool((np.argmax(a, -1) == np.argmax(b, -1)).all())
+
+    def top1_rows(got, want):
+        """The rows whose top-1 differs, each with the top-2 margin of
+        ``want`` and whether ``got``'s top-1 is one of ``want``'s tied
+        classes (an exact tie at the maximum has no single top-1: argmax
+        takes the first), and the largest elementwise |got - want|."""
+        got, want = (np.asarray(v, np.float32) for v in (got, want))
+        diff = float(np.abs(got - want).max())
+        top2 = np.sort(want, -1)[:, -2:]
+        g1 = np.argmax(got, -1)
+        rows_ = np.nonzero(g1 != np.argmax(want, -1))[0]
+        return [(int(i), float(top2[i, 1] - top2[i, 0]),
+                 bool(want[i, g1[i]] == want[i].max())) for i in rows_], diff
 
     rng = np.random.default_rng(0)
     requests = [rng.standard_normal((n, 224, 224, 3)).astype(np.float32)
@@ -2654,6 +2726,281 @@ def main() -> int:
             for name, ms, n in prof["top"]:
                 print(f"    {ms:8.3f} ms  x{n:6.1f}  {name[:110]}", flush=True)
 
+    # ------------------------------------------------ CUDA graphs
+    from cnns_slfp_quantization_tpu_torch.utils.profiling import (
+        HAND_KERNELS,
+        GraphedForward,
+        _perturbed,
+        busy_ms,
+        scan_throughput,
+        scan_train_throughput,
+    )
+
+    GRAPH_STEPS = 8
+
+    def bits(ts):
+        """The bytes of each tensor, for bit-for-bit comparisons."""
+        return [t.detach().reshape(-1).contiguous().view(torch.uint8)
+                for t in ts]
+
+    def same_bytes(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+
+    BUSY_CALLS = 3
+
+    def busy_line(label, fn):
+        """Wall, kernel time by class and idle share per call of ``fn``
+        over BUSY_CALLS calls (``profiling.busy_ms``): (the idle share or
+        None, the hand kernels' launches the trace holds over the calls)."""
+        wall, busy, classes, launched = busy_ms(fn, calls=BUSY_CALLS)
+        launched = {k: n for k, n in launched.items() if n}
+        if busy is None:
+            print(f"  {label}: wall {wall:.3f} ms; the profiler recorded no "
+                  f"kernel (idle share not measured)", flush=True)
+            return None, launched
+        print(f"  {label}: wall {wall:.3f} ms, kernels {busy:.3f} ms, idle "
+              f"share {1 - busy / wall:.3f}; by class: " + ", ".join(
+                  f"{c} {ms:.3f}" for c, ms in sorted(classes.items()))
+              + f" ms; hand kernels in the trace over {BUSY_CALLS} calls "
+              f"{launched}", flush=True)
+        return 1 - busy / wall, launched
+
+    def replayed(path, label, graphed, per_call):
+        """The idle share of ``graphed``'s replays; the hand kernels their
+        trace holds must be ``per_call`` (counted at the capture) times the
+        replays, and that count is the path's launches."""
+        want = {k: n * BUSY_CALLS for k, n in per_call.items()
+                if n and k in HAND_KERNELS}
+        idle, launched = busy_line(label, graphed)
+        assert launched == want, (label, launched, want)
+        for key, name in (("k1", "act_quantize"), ("k2", "qmm_fused"),
+                          ("k3", "bn_epilogue"), ("k4", "fused_quant_matmul"),
+                          ("k5", "dw3x3"), ("k6", "bottleneck_chain")):
+            if name in launched:
+                rows[key].counted(path, launched[name], BUSY_CALLS)
+        return idle
+
+    DROP_STEPS, DB = 4, 32
+
+    def dropout_graph():
+        """SqueezeNet 1.0 (Dropout(0.5) before its classifier) at 224, batch
+        DB, SLFP8: DROP_STEPS replays of the captured step, drawing from a
+        generator registered with the graph, against eager steps on a
+        generator seeded alike: the same dropout outputs, losses, weights
+        and momentum bit for bit; about half the nonzero inputs dropped,
+        and another mask each step."""
+        rng = np.random.default_rng(11)
+        x0 = torch.from_numpy(rng.standard_normal((DB, 224, 224, 3)).astype(
+            np.float32)).to(dev)
+        y0 = torch.from_numpy(rng.integers(0, 1000, DB)).to(dev)
+        xs = [_perturbed(x0, i) for i in range(DROP_STEPS)]
+
+        def fresh():
+            """The seed's model, a DSGD state, the step, the generator and
+            the dropout's (output, dropped, nonzero input) of each call."""
+            model = models.create_model(
+                "squeezenet", 8, scales=calib.ScaleSet.ones(26),
+                compute_dtype=torch.bfloat16,
+                generator=torch.Generator().manual_seed(0)).to(dev)
+            opt = topt.dsgd(model.parameters(), 1e-3, model.qbit)
+            seen = []
+            model.drop.register_forward_hook(lambda m, i, o: seen.append(
+                (o.detach(), (o == 0) & (i[0] != 0), i[0] != 0)))
+            return (tloop.TrainState(model, opt),
+                    tloop.make_train_step(model, opt, has_dropout=True),
+                    torch.Generator(device=dev).manual_seed(1234), seen)
+
+        state, step, gen, _ = fresh()
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            try:
+                tloop.GraphedTrainStep(step, state, x0, y0, gen)
+            except RuntimeError as e:
+                print(f"  dropout: this torch cannot register a generator "
+                      f"with a graph, and GraphedTrainStep refuses: {e}",
+                      flush=True)
+                return
+            raise AssertionError("a dropout step captured without its "
+                                 "generator")
+        kernels.reset_launches()
+        step(state, x0, y0, gen)
+        torch.cuda.synchronize()
+        per_step = {k: n for k, n in kernels.launches().items() if n}
+        got = {}
+        for mode in ("eager", "graph"):
+            state, step, gen, seen = fresh()
+            if mode == "graph":
+                g = tloop.GraphedTrainStep(step, state, x0, y0, gen)
+                assert {k: n for k, n in g.launches.items() if n} == \
+                    per_step, (g.launches, per_step)
+                run = g
+            else:
+                def run(x, y, state=state, step=step, gen=gen):
+                    return step(state, x, y, gen)
+            outs = []
+            for x in xs:
+                loss = run(x, y0)["loss"].clone()
+                outs.append((loss,) + tuple(t.clone() for t in seen[-1]))
+            torch.cuda.synchronize()
+            model, opt = state.model, state.optimizer
+            got[mode] = {
+                "outs": [bits(o[:3]) for o in outs],
+                "weights": bits(model.parameters()),
+                "momentum": bits(opt.state[p]["momentum"]
+                                 for p in model.parameters())}
+        for key in ("weights", "momentum"):
+            assert same_bytes(got["graph"][key], got["eager"][key]), key
+        for i, (a, b) in enumerate(zip(got["graph"]["outs"],
+                                       got["eager"]["outs"])):
+            assert same_bytes(a, b), ("dropout step", i)
+        drops = [(float(d.sum()), float(nz.sum())) for *_, d, nz in outs]
+        for d, nz in drops:
+            assert nz > 1000 and 0.45 < d / nz < 0.55, drops
+        assert all(not torch.equal(outs[i][2], outs[i + 1][2])
+                   for i in range(DROP_STEPS - 1)), "a mask repeated"
+        idle = replayed("qat_graph_dropout_squeezenet",
+                        "squeezenet dropout graph replay",
+                        lambda: g(x0, y0), per_step)
+        print(f"  dropout (SqueezeNet, batch {DB}, 224): {DROP_STEPS} "
+              f"replays on a registered generator give the eager steps' "
+              f"dropout outputs, losses, weights and momentum bit for bit; "
+              f"dropped {[round(d / nz, 4) for d, nz in drops]} of the "
+              f"nonzero inputs, another mask each step; launches a step "
+              f"{per_step}; idle share of a replay {idle} ({card})",
+              flush=True)
+
+    @phase("CUDA graphs: the QAT step captured and replayed against eager "
+           "steps (routes A, B and float32, batch 256), fused ResNet-50's "
+           "forward (batch 64)")
+    def graph_phase(sc):
+        x0, y0 = train_data(TB)
+        xs = [_perturbed(x0, i) for i in range(GRAPH_STEPS)]
+        makes = {
+            "route_A": (lambda: train_model(8, sc), WANT_A),
+            "route_B": (lambda: train_model(8, sc, use_pallas=True), WANT_B),
+            "float32": (lambda: train_model(32, sc, cdt=None), {}),
+        }
+
+        def fresh(make):
+            model = make()
+            opt = topt.dsgd(model.parameters(), 1e-3, model.qbit)
+            return (tloop.TrainState(model, opt),
+                    tloop.make_train_step(model, opt))
+
+        for label, (make, want) in makes.items():
+            # 8 replays against 8 eager steps, each from the seed's state
+            got = {}
+            for mode in ("eager", "graph"):
+                state, step = fresh(make)
+                if mode == "graph":
+                    g = tloop.GraphedTrainStep(step, state, x0, y0)
+                    per_step = {k: n for k, n in g.launches.items() if n}
+                    run = g
+                else:
+                    def run(x, y, state=state, step=step):
+                        return step(state, x, y)
+                losses = [run(x, y0)["loss"].clone() for x in xs]
+                torch.cuda.synchronize()
+                model, opt = state.model, state.optimizer
+                got[mode] = {
+                    "losses": bits(losses),
+                    "weights": bits(model.parameters()),
+                    "momentum": bits(opt.state[p]["momentum"]
+                                     for p in model.parameters()),
+                    "bn": bits(b for n, b in model.named_buffers()
+                               if "running" in n),
+                    "steps": (state.step, opt.count)}
+            for key in ("losses", "weights", "momentum", "bn"):
+                assert same_bytes(got["graph"][key], got["eager"][key]), \
+                    (label, key)
+            assert got["graph"]["steps"] == got["eager"]["steps"] == \
+                (GRAPH_STEPS, GRAPH_STEPS), got
+            assert per_step == {k: v for k, v in want.items() if v}, \
+                (label, per_step, want)
+            print(f"  {label}: {GRAPH_STEPS} replays of the captured step "
+                  f"give the eager steps' losses, weights, momentum and BN "
+                  f"statistics bit for bit; launches a step {per_step} "
+                  f"(counted at the capture)", flush=True)
+            # images/s in turns, two rounds: eager, graph, graph, eager
+            state, step = fresh(make)
+            ips = {"eager": [], "graph": []}
+            for mode in ("eager", "graph", "graph", "eager") * 2:
+                ips[mode].append(scan_train_throughput(
+                    step, state, x0, y0, steps=GRAPH_STEPS,
+                    graph=mode == "graph"))
+            mean = {k: sum(v) / len(v) for k, v in ips.items()}
+            g = tloop.GraphedTrainStep(step, state, x0, y0)
+            idle = {"eager": busy_line(f"{label} eager step",
+                                       lambda: step(state, x0, y0))[0],
+                    "graph": replayed(f"qat_graph_{label}",
+                                      f"{label} graph replay",
+                                      lambda: g(x0, y0), g.launches)}
+            print(f"  {label} training images/s at batch {TB} in turns "
+                  f"(eager, graph, graph, eager, twice): eager "
+                  f"{[round(v, 1) for v in ips['eager']]}, graph "
+                  f"{[round(v, 1) for v in ips['graph']]}; means "
+                  f"{mean['eager']:.1f} / {mean['graph']:.1f} = graph "
+                  f"{mean['graph'] / mean['eager']:.3f}x; idle share eager "
+                  f"{idle['eager']}, graph {idle['graph']} ({card})",
+                  flush=True)
+
+        dropout_graph()
+
+        # fused ResNet-50's forward at batch 64: the graph's logits are
+        # the eager forward's, and its images/s in turns
+        eng = InferenceEngine("resnet", qbit=8, batch_size=B, image_size=224,
+                              seed=0)
+        x = torch.from_numpy(requests[0]).to(dev)
+        gf = GraphedForward(eng.forward, x)
+        per_fwd = {k: n for k, n in gf.launches.items() if n}
+        assert per_fwd == RN_WANT, per_fwd
+        assert same_bits(gf(x), eng.forward(x)), "graph logits differ"
+        ips = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager") * 2:
+            ips[mode].append(scan_throughput(eng.forward, x, steps=16,
+                                             graph=mode == "graph"))
+        mean = {k: sum(v) / len(v) for k, v in ips.items()}
+        idle = {"eager": busy_line("resnet fused eager forward",
+                                   lambda: eng.forward(x))[0],
+                "graph": replayed("resnet_fused_graph",
+                                  "resnet fused graph replay",
+                                  lambda: gf(x), per_fwd)}
+        print(f"  fused ResNet-50 (default policy), batch {B}: graph logits "
+              f"bit-equal to eager; launches a forward {per_fwd}; "
+              f"scan_throughput images/s in turns: eager "
+              f"{[round(v, 1) for v in ips['eager']]}, graph "
+              f"{[round(v, 1) for v in ips['graph']]}; means "
+              f"{mean['eager']:.1f} / {mean['graph']:.1f} = graph "
+              f"{mean['graph'] / mean['eager']:.3f}x; idle share eager "
+              f"{idle['eager']}, graph {idle['graph']} ({card})", flush=True)
+
+        # fused CIFAR MobileNetV1 (K1, K3, K5) at batch 256, unit scales
+        # (a random-init model's activations stay off the pseudo-zero)
+        mob = InferenceEngine("mobilenet", qbit=8, batch_size=TB, seed=0,
+                              scales=calib.ScaleSet.ones(28))
+        xm = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (TB, 32, 32, 3)).astype(np.float32)).to(dev)
+        gm = GraphedForward(mob.forward, xm)
+        per_fwd = {k: n for k, n in gm.launches.items() if n}
+        assert per_fwd == {"act_quantize": 2, "bn_epilogue": 18,
+                           "dw3x3": 9}, per_fwd
+        got, want = gm(xm), mob.forward(xm)
+        assert same_bits(got, want) and bool(
+            (want.float().std(0) > 0).any()), "graph logits differ"
+        ips = {mode: scan_throughput(mob.forward, xm, steps=16,
+                                     graph=mode == "graph")
+               for mode in ("eager", "graph")}
+        idle = {"eager": busy_line("mobilenet fused eager forward",
+                                   lambda: mob.forward(xm))[0],
+                "graph": replayed("mobilenet_fused_graph",
+                                  "mobilenet fused graph replay",
+                                  lambda: gm(xm), per_fwd)}
+        print(f"  fused CIFAR MobileNetV1, batch {TB}: graph logits "
+              f"bit-equal to eager; launches a forward {per_fwd}; "
+              f"scan_throughput images/s eager {ips['eager']:.1f}, graph "
+              f"{ips['graph']:.1f}; idle share eager {idle['eager']}, graph "
+              f"{idle['graph']} ({card})", flush=True)
+
     # ------------------------------------------------ the PTQ workflow
     from cnns_slfp_quantization_tpu_torch.calib import calibrate as tcal
     from cnns_slfp_quantization_tpu_torch.cli import (
@@ -3006,6 +3353,76 @@ def main() -> int:
             for key, name in (("k1", "act_quantize"), ("k3", "bn_epilogue")):
                 rows[key].counted(f"blockin_{mode}", cnt[name], 1)
 
+    def k2_against_plain(path, call):
+        """Every K2 call of one run of ``call`` held against its plain
+        version on the same operands (``bench_gemm.check_gemm``)."""
+        seen, orig = [], k2.qmm_fused
+
+        def record(x, w, s_, t_, **kw):
+            seen.append((x, w, s_, t_, kw))
+            return orig(x, w, s_, t_, **kw)
+
+        record.__dict__ = orig.__dict__     # K2 counts through this name
+        k2.qmm_fused = record
+        try:
+            call()
+        finally:
+            k2.qmm_fused = orig
+        forms = Counter()
+        for x, w, s_, t_, kw in seen:
+            got = orig(x, w, s_, t_, **kw)
+            want = k2.qmm_plain(x, w, s_, t_, **kw)
+            torch.cuda.synchronize()
+            r = kw.get("quant_in_recip")
+            xq = k1.act_quantize_plain(x, r) if r is not None else x
+            wv = (sfp.slfp34_decode_bits(w) if w.dtype == torch.uint8
+                  else w).to(torch.bfloat16)
+            mag = bench_gemm.gemm_mag(xq, wv, s_, t_, kw.get("residual"))
+            rows["k2"].err(k2_check(
+                got, want, kw.get("quant_out_recip") is not None,
+                f"K2 {path} M={x.shape[0]} N={w.shape[1]}", mag,
+                x.shape[1]))
+            forms[(r is not None, kw.get("quant_out_recip") is not None,
+                   str(kw.get("out_dtype", torch.bfloat16)))] += 1
+        print(f"  {path}: K2 at its {len(seen)} calls against the plain "
+              f"version by the reordering rule; forms (quantize in, "
+              f"quantize out, out type): {dict(forms)}", flush=True)
+
+    @phase("path: bench_quant_sites at batch 64, fused ResNet-50 (each "
+           "activation-quantize site priced; default and JAX placements)")
+    def quant_sites_phase():
+        from cnns_slfp_quantization_tpu_torch.utils import bench_quant_sites
+
+        for case, pol in bench_quant_sites.CASES.items():
+            got = bench_quant_sites.measure(B, case, steps=16)
+            for r in got:
+                assert r["finite"], r
+                assert r.get("bit_equal_to_default", True), r
+            base = got[0]["img_per_sec"]
+            print(f"  {case} ({pol}), batch {B}: images/s all "
+                  f"{base:.1f}; " + "; ".join(
+                      f"{r['config']} {r['img_per_sec']:.1f} "
+                      f"({r['img_per_sec'] / base - 1:+.4f})"
+                      for r in got[1:]) + f" ({card})", flush=True)
+            for r in (got[0], got[-1]):
+                path = f"quant_sites_{case}_{r['config'].split()[0]}"
+                for key, name in (("k1", "act_quantize"), ("k2", "qmm_fused"),
+                                  ("k3", "bn_epilogue"),
+                                  ("k6", "bottleneck_chain")):
+                    if r["launches"].get(name):
+                        rows[key].counted(path, r["launches"][name], 1)
+        # the lever's K2 forms with every site off (raw f32 out for cuDNN,
+        # raw bf16 in) against the plain version
+        eng = InferenceEngine("resnet", qbit=8, batch_size=B, image_size=224,
+                              seed=0)
+        x = torch.from_numpy(requests[0]).to(dev)
+
+        def ceiling():
+            with torch.inference_mode():
+                rf.fused_apply(eng.executor, x, _diag_quant_sites=frozenset())
+
+        k2_against_plain("quant_sites_default_none", ceiling)
+
     # ------------------------------------------------ determinism and mesh
     def same_state(a, b):
         return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
@@ -3131,7 +3548,7 @@ def main() -> int:
     @phase("mesh: gloo, 2 ranks sharing the card (fused ResNet-50 2x1 and "
            "1x2, SqueezeNet module path 1x2, fused MobileNetV1 2x1, QAT "
            "2x1 and 1x2, spatial conv, the CLI, scaling_bench)")
-    def gloo_phase(sc):
+    def gloo_phase(sc, fused_scales):
         import pickle
         import socket
         import tempfile
@@ -3144,7 +3561,8 @@ def main() -> int:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             out = f"{tmp}/rank"
-            mp.spawn(_mesh_rank, (2, port, out, list(sc.ka), list(sc.kw)),
+            mp.spawn(_mesh_rank, (2, port, out, list(sc.ka), list(sc.kw),
+                                  fused_scales),
                      nprocs=2, start_method="spawn")
             res = []
             for r in range(2):
@@ -3196,6 +3614,35 @@ def main() -> int:
                 np.uint16), mn["want"][i * 32:(i + 1) * 32].view(np.uint16))
             mesh_counts(f"mesh2x1_mobilenet_fused_rank{r}", mn["counts"],
                         {"act_quantize": 2, "bn_epilogue": 18, "dw3x3": 9})
+            for net, want in (("mobilenetv1", {"act_quantize": 1,
+                                               "bn_epilogue": 18,
+                                               "dw3x3": 9}),
+                              ("shufflenetv2", {"act_quantize": 35,
+                                                "bn_epilogue": 20})):
+                tp = rr["_mesh_fused_tp"][net]
+                c = cos(tp["got"], tp["want"])
+                flips, diff = top1_rows(tp["got"], tp["want"])
+                print(f"  rank {r}: fused {net}, 1x2: rows whose top-1 "
+                      f"differs from the unsharded engine's (row, its top-2 "
+                      f"margin, one of its tied top classes): {flips}; "
+                      f"largest |diff| {diff:.4g}; logits "
+                      f"differing {int((tp['got'] != tp['want']).sum())} of "
+                      f"{tp['want'].size}", flush=True)
+                # the same top-1, a tie's classes each counting as it
+                assert c > 0.999 and all(tie for *_, tie in flips), \
+                    (r, net, c, flips)
+                assert np.array_equal(
+                    tp["got"].view(np.uint32),
+                    res[0]["_mesh_fused_tp"][net]["got"].view(np.uint32))
+                mesh_counts(f"mesh1x2_{net}_fused_rank{r}", tp["counts"],
+                            want)
+                print(f"  rank {r}: fused {net}, 1x2, batch {B}: cos "
+                      f"{c:.6f} against an unsharded engine, same top-1 "
+                      f"(where tied: one of the tied classes), "
+                      f"the same logits on both ranks; launches a forward "
+                      f"{ {k: n for k, n in tp['counts'].items() if n} }; "
+                      f"{tp['s']:.2f} s a forward (2 ranks sharing one "
+                      f"{card}, gloo)", flush=True)
             qf, qa = rr["_mesh_qat"][32], rr["_mesh_qat"][8]
 
             def bn_rel(got, want):
@@ -3338,20 +3785,25 @@ def main() -> int:
     train_cli_phase()
     if sc_train is not None:
         train_speed_phase(sc_train)
+        graph_phase(sc_train)
     else:
-        failures.append("training speed: no route B scales")
+        failures.append("training speed and graphs: no route B scales")
     cal = calibrate_serve_phase(ch)
     ptq_sweep_phase()
     imgnet_phase()
     cifar_disk_phase()
     recovery_phase()
     blockin_phase()
-    if sc_train is not None:
+    quant_sites_phase()
+    if sc_train is not None and mn is not None and sh is not None:
         determinism_phase(sc_train)
         nccl_phase(sc_train)
-        gloo_phase(sc_train)
+        gloo_phase(sc_train, {
+            "mobilenetv1": (list(mn[1].ka), list(mn[1].kw)),
+            "shufflenetv2": (list(sh[1].ka), list(sh[1].kw))})
     else:
-        failures.append("determinism and mesh phases: no route B scales")
+        failures.append("determinism and mesh phases: no route B, "
+                        "MobileNetV1 or ShuffleNetV2 scales")
     for eng, label in ((fused and fused[0], "resnet fused, chain off"),
                        (ch, "resnet fused, default: chain={2,3}"),
                        (cal, "resnet fused, freshly calibrated constants"),

@@ -47,7 +47,9 @@ def affine_f32(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.Tenso
     err = (p - (d - bb)) + (td - bb)
     r = d.float()
     rd = r.double()
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=y.device)
+    # a fill, not a copy from host memory: the optimizer's update runs
+    # this inside a CUDA graph
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=y.device)
     other = torch.nextafter(r, torch.where(d > rd, inf, -inf))
     od = other.double()
     fix = (d == (rd + od) * 0.5) & (err != 0) & ((err > 0) == (od > rd))

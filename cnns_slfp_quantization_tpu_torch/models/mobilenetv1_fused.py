@@ -31,6 +31,13 @@ in between.
 ``mobilenetv1_fused.py:72``); JAX reaches its depthwise kernel only from
 its A/B tool.  The convolutions and matmuls take float32 tensors that hold
 bf16 values, as in :mod:`.resnet50_fused`, under the same numerics flags.
+
+Over a model axis :func:`shard_weights` keeps each rank's out-channel
+shards (every conv's weight and folded affine, K5's taps, the
+classifier's columns).  Each forward gathers what the hand kernels read
+whole, K5's taps and affine and every affine K3 reads; cuDNN's convs
+and the plain matmuls compute their out-channel shard and gather the
+channels, a grouped conv from its own channels of the input.
 """
 
 from __future__ import annotations
@@ -59,6 +66,8 @@ from cnns_slfp_quantization_tpu_torch.models.resnet50_fused import (
     _s2d_stem,
     _s2d_weight,
     bn_fold,
+    shard_conv,
+    whole_affine,
 )
 from cnns_slfp_quantization_tpu_torch.ops import sfp
 from cnns_slfp_quantization_tpu_torch.ops.backend import (
@@ -66,6 +75,8 @@ from cnns_slfp_quantization_tpu_torch.ops.backend import (
     full_f32_matmul,
 )
 from cnns_slfp_quantization_tpu_torch.ops.layers import QuantDense
+from cnns_slfp_quantization_tpu_torch.parallel import comm
+from cnns_slfp_quantization_tpu_torch.parallel import mesh as mesh_lib
 
 DEFAULT_POLICY = {"dw": "kernel"}
 
@@ -77,13 +88,16 @@ class FusedWeights:
     dw: list               # per block: ConvKxK (grouped, OIHW) ...
     dw_taps: list          # ... and its taps [3, 3, C] float32, for K5
     dw_ftz: list           # ... and K5's route for them (k5.ftz_route)
-    pw: list               # per block: (w [Cin, Cout] f32, scale, shift,
-                           # K3's route)
+    pw: list               # per block: ConvKxK, w [Cin, Cout] f32
     fc_w: torch.Tensor     # [1024, classes] float32 (bf16 values if quantized)
     fc_b: torch.Tensor     # bias, or float32(b) / float32(kaw) if quantized
     kaw_fc: Optional[torch.Tensor]   # float32 0-d, quantized classifier only
     quant_classifier: bool
     recips: list           # recips[i] = 1/Ka as JAX computes it
+    # the mesh whose model axis the tensors are sharded over, and the group
+    # the classifier's column shards are gathered over (shard_weights)
+    mesh: Optional[object] = None
+    fc_group: Optional[object] = None
 
 
 def prepare(model: MobileNetV1, *, device="cuda") -> FusedWeights:
@@ -126,8 +140,7 @@ def prepare(model: MobileNetV1, *, device="cuda") -> FusedWeights:
         dw_ftz.append(k5.ftz_route(dw_taps[-1], c.scale, c.shift,
                                    recips[2 + 2 * b]))
         p = conv_kxk(2 + 2 * b)
-        pw.append((p.w[:, :, 0, 0].t().contiguous(), p.scale, p.shift,
-                   p.ftz))
+        pw.append(dataclasses.replace(p, w=p.w[:, :, 0, 0].t().contiguous()))
     quant_fc = isinstance(model.fc, QuantDense)
     fc_b = model.fc.bias.detach().cpu().numpy().astype(np.float32)
     if quant_fc:
@@ -162,7 +175,44 @@ def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
                          f"prepared model's classifier is "
                          f"{'quantized' if fw.quant_classifier else 'float'}")
     with backend_flags():
+        if fw.mesh is not None:
+            fw = _gathered(fw)
         return _fused_apply(fw, x, pol["dw"] == "kernel", s2d_stem)
+
+
+def shard_weights(fw: FusedWeights, mesh) -> FusedWeights:
+    """What a rank of ``mesh`` stores of ``fw``: every conv's out-channel
+    shard over the model axis with its folded affine
+    (``resnet50_fused.shard_conv``), K5's taps for the rank's channels and
+    the classifier's columns; :func:`fused_apply` gathers per forward."""
+    m = mesh_lib.axis_size(mesh, "model")
+    dw = [shard_conv(d, mesh) for d in fw.dw]
+    taps = [t if d.tp_group is None
+            else mesh_lib.local_shard(t, (None, None, "model"), mesh)
+            for d, t in zip(dw, fw.dw_taps)]
+    fc = fw.fc_w.shape[1] % m == 0
+    return dataclasses.replace(
+        fw, stem=shard_conv(fw.stem, mesh),
+        stem_s2d=shard_conv(fw.stem_s2d, mesh), dw=dw, dw_taps=taps,
+        pw=[shard_conv(p, mesh, 1) for p in fw.pw],
+        fc_w=mesh_lib.local_shard(fw.fc_w, (None, "model"), mesh)
+        if fc else fw.fc_w,
+        fc_b=mesh_lib.local_shard(fw.fc_b, ("model",), mesh)
+        if fc else fw.fc_b,
+        fc_group=mesh.get_group("model") if fc else None, mesh=mesh)
+
+
+def _gathered(fw: FusedWeights) -> FusedWeights:
+    """What one forward of a model-sharded ``fw`` reads whole: K5's taps
+    and every affine K3 or K5 reads (the weights of cuDNN's convs and the
+    matmuls stay shards)."""
+    taps = [t if d.tp_group is None
+            else comm.all_gather_cat(t, 2, d.tp_group).contiguous()
+            for d, t in zip(fw.dw, fw.dw_taps)]
+    return dataclasses.replace(
+        fw, stem=whole_affine(fw.stem), stem_s2d=whole_affine(fw.stem_s2d),
+        dw=[whole_affine(d) for d in fw.dw], dw_taps=taps,
+        pw=[whole_affine(p) for p in fw.pw], mesh=None)
 
 
 def _fused_apply(fw: FusedWeights, x: torch.Tensor, dw_kernel: bool,
@@ -201,23 +251,28 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, dw_kernel: bool,
                                   relu=True, emit_raw=False,
                                   quant_recip=rc[i_pw], q_dtype=f32,
                                   ftz=d.ftz)
-        w, s, t, ftz = fw.pw[b]
-        lead = y.shape[:-1]
-        z = _mm_f32(_flat(y), w).reshape(*lead, w.shape[1])
+        p = fw.pw[b]
+        z = _mm_f32(_flat(y), p.w)
+        if p.tp_group is not None:   # the rank's out-channels: gather them
+            z = comm.all_gather_cat(z, -1, p.tp_group)
+        z = z.reshape(*y.shape[:-1], z.shape[-1])
         # the classifier quantizes after pooling (the reference pools raw
         # activations), so the last block writes raw bf16
         if b == last:
-            y, _ = k3.bn_epilogue(z, s, t, relu=True, ftz=ftz)
+            y, _ = k3.bn_epilogue(z, p.scale, p.shift, relu=True, ftz=p.ftz)
         else:
-            _, y = k3.bn_epilogue(z, s, t, relu=True, emit_raw=False,
-                                  quant_recip=rc[i_dw + 2],
-                                  q_dtype=dw_in(b + 1), ftz=ftz)
+            _, y = k3.bn_epilogue(z, p.scale, p.shift, relu=True,
+                                  emit_raw=False, quant_recip=rc[i_dw + 2],
+                                  q_dtype=dw_in(b + 1), ftz=p.ftz)
 
     # --- head: mean over H and W, then the classifier ----------------------
     xa = torch.mean(y.to(torch.float32), dim=(1, 2))
     if not fw.quant_classifier:
         with full_f32_matmul():
-            return xa @ fw.fc_w + fw.fc_b
-    xq = act_quantize(xa, rc[FC_ID], out_dtype=f32)
-    y = _mm_f32(xq, fw.fc_w)
-    return ((y + fw.fc_b) * fw.kaw_fc).to(torch.bfloat16)
+            y = xa @ fw.fc_w + fw.fc_b
+    else:
+        xq = act_quantize(xa, rc[FC_ID], out_dtype=f32)
+        y = ((_mm_f32(xq, fw.fc_w) + fw.fc_b) * fw.kaw_fc).to(bf16)
+    if fw.fc_group is not None:      # the rank's classes: gather them
+        y = comm.all_gather_cat(y, -1, fw.fc_group)
+    return y

@@ -61,6 +61,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from cnns_slfp_quantization_tpu_torch.kernels import chain as k6
@@ -273,9 +274,7 @@ def shard_weights(fw: FusedWeights, mesh) -> FusedWeights:
         if isinstance(c, Conv1x1):
             return dataclasses.replace(c, w=cut(c.w.t()).t(),
                                        scale=cut(c.scale), shift=cut(c.shift))
-        return dataclasses.replace(
-            c, w=cut(c.w).contiguous(memory_format=torch.channels_last),
-            scale=cut(c.scale), shift=cut(c.shift))
+        return shard_conv(c, mesh)
 
     return dataclasses.replace(
         fw, stem=conv(fw.stem),
@@ -298,8 +297,7 @@ def _gathered(fw: FusedWeights) -> FusedWeights:
             return dataclasses.replace(c, w=full(c.w.t()).t(),
                                        scale=full(c.scale),
                                        shift=full(c.shift))
-        return dataclasses.replace(c, scale=full(c.scale),
-                                   shift=full(c.shift), tp_group=group)
+        return whole_affine(c)
 
     return dataclasses.replace(
         fw, stem=conv(fw.stem),
@@ -309,10 +307,52 @@ def _gathered(fw: FusedWeights) -> FusedWeights:
         chain={}, mesh=None)
 
 
+def shard_conv(c: ConvKxK, mesh, dim: int = 0) -> ConvKxK:
+    """What a rank of ``mesh`` stores of ``c`` for every fused executor
+    (:func:`shard_weights` and MobileNetV1's and ShuffleNetV2's): its
+    out-channel shard over the model axis
+    (``w`` cut along ``dim``, 0 for OIHW, 1 for a ``[Cin, Cout]`` matmul
+    weight; the folded affine; a grouped conv's groups), with ``tp_group``
+    set, over which each forward gathers the channels.  Where the model
+    size does not divide the out-channels ``c`` stays whole, as JAX's
+    ``param_shardings`` leaves such a tensor replicated.  The route K3
+    takes (``ftz``) stays the one decided on the whole affine."""
+    m = mesh_lib.axis_size(mesh, "model")
+    if c.scale.shape[0] % m:
+        return c
+
+    def cut(t, d=0):
+        return mesh_lib.local_shard(t, (None,) * d + ("model",), mesh)
+
+    w = cut(c.w, dim)
+    if w.dim() == 4:
+        w = w.contiguous(memory_format=torch.channels_last)
+    return dataclasses.replace(
+        c, w=w, scale=cut(c.scale), shift=cut(c.shift),
+        groups=c.groups // m if c.groups > 1 else 1,
+        tp_group=mesh.get_group("model"))
+
+
+def whole_affine(c: ConvKxK) -> ConvKxK:
+    """``c`` with its folded affine gathered whole (what K3 reads) where
+    it holds a shard; its weight stays the shard."""
+    if c.tp_group is None:
+        return c
+    return dataclasses.replace(
+        c, scale=comm.all_gather_cat(c.scale, 0, c.tp_group),
+        shift=comm.all_gather_cat(c.shift, 0, c.tp_group))
+
+
 def _conv_f32(xq: torch.Tensor, c: ConvKxK) -> torch.Tensor:
     """NHWC bf16 values (as float32, or bf16 widened here) -> NHWC float32
-    conv output (cuDNN, channels last)."""
+    conv output (cuDNN, channels last).  Under a model group ``c.w`` holds
+    the rank's out-channel shard, whose output channels are gathered; a
+    grouped conv's shard (``c.groups`` of them) reads its own channels of
+    the input."""
     x = xq.to(torch.float32).permute(0, 3, 1, 2)
+    if c.tp_group is not None and c.groups > 1:
+        per = x.shape[1] // dist.get_world_size(c.tp_group)
+        x = x.narrow(1, dist.get_rank(c.tp_group) * per, per)
     y = F.conv2d(x, c.w, stride=c.stride, padding=c.pad, groups=c.groups)
     y = y.permute(0, 2, 3, 1).contiguous()
     if c.tp_group is not None:
@@ -349,13 +389,62 @@ def _flat(x):
     return x.reshape(-1, x.shape[-1])
 
 
+def _post(y, c: ConvKxK, quantize: bool, recip: float, dtype, *,
+          relu: bool):
+    """K3 after a plain conv or matmul: the quantized output for the next
+    conv, written as ``dtype``; with the site off, the raw bf16 output
+    (``_diag_quant_sites``), widened where ``dtype`` is float32."""
+    if quantize:
+        return k3.bn_epilogue(y, c.scale, c.shift, relu=relu, emit_raw=False,
+                              quant_recip=recip, q_dtype=dtype,
+                              ftz=c.ftz)[1]
+    raw, _ = k3.bn_epilogue(y, c.scale, c.shift, relu=relu, ftz=c.ftz)
+    return raw.to(dtype)
+
+
 BLOCKIN_FUSE = ("consumer", "producer", "pallas_dual", "packed")
+QUANT_SITES = frozenset({"stem", "blockin", "c1out", "c2out", "c3out",
+                         "head"})
 
 
 def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
                 policy: Optional[dict] = None,
+                _diag_quant_sites: Optional[frozenset] = None,
                 _diag_blockin_fuse: str = "pallas_dual") -> torch.Tensor:
     """SLFP8 ResNet-50 logits (bf16, as JAX) for NHWC float32 images.
+
+    The ``_diag_*`` keywords are measurement levers, never a serving
+    setting.  ``_diag_quant_sites`` (JAX ``resnet50_fused.py:144-162``)
+    names the activation-quantize sites that stay on, a subset of
+    :data:`QUANT_SITES`; None (production) is every site, the same bits as
+    no keyword.  A site that is off hands its consumer the raw value
+    instead of the quantized one: wrong on purpose, with the same shapes,
+    to price that site's quantize (``utils/bench_quant_sites.py``).  The
+    sites and where each runs:
+
+    - ``stem``: K1 on the input;
+    - ``blockin``: a block input's quantize that no stage end emitted: K1
+      at stage 0's first block and, mid-stage, K1, K2's prologue
+      (``quant_in_recip``), K3's dual form or K6's quantized output (off:
+      the raw block output; a K6 block then reads it raw);
+    - ``c1out``, ``c2out``: conv1's and conv2's output quantize, K2's
+      epilogue (``quant_out_recip``) or K3;
+    - ``c3out``: a stage end's quantized conv3 output, K2's epilogue or K3
+      (off: the next stage's first block quantizes the raw output where
+      ``blockin`` is on, as in JAX);
+    - ``head``: K1 before the classifier.
+
+    Each consumer keeps the type it reads, and a site that is off costs
+    no pass of its own where its producer can write the raw value in that
+    type: the stem's and the head's float32 values go in as they are (JAX
+    rounds them to bf16, the type its consumers read), and K2 writes its
+    raw output as float32 for cuDNN.  K3's raw output is bf16 only, so
+    where cuDNN or a plain matmul reads it a copy widens it, and a K1 pass
+    that is off at stage 0 under ``conv1="torch"`` leaves a copy too: the
+    price of those sites is net of that copy.  On a K6 block only
+    ``blockin`` is honoured: K6's own conv1 / conv2 quantizes and its
+    stage-end output stay on, as JAX's chain keeps them (JAX
+    ``:262-296``).  An unknown site name raises.
 
     ``_diag_blockin_fuse`` is a measurement lever (JAX
     ``resnet50_fused.py:338-375``): where conv3 runs as a plain matmul
@@ -371,6 +460,13 @@ def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
     if _diag_blockin_fuse not in BLOCKIN_FUSE:
         raise ValueError(f"_diag_blockin_fuse={_diag_blockin_fuse!r}: one "
                          f"of {BLOCKIN_FUSE}")
+    sites = QUANT_SITES
+    if _diag_quant_sites is not None:
+        sites = frozenset(_diag_quant_sites)
+        if not sites <= QUANT_SITES:
+            raise ValueError(f"_diag_quant_sites: unknown sites "
+                             f"{sorted(sites - QUANT_SITES)}; the sites are "
+                             f"{sorted(QUANT_SITES)}")
     pol = dict(DEFAULT_POLICY, **(policy or {}))
     for key, val in pol.items():
         if key == "chain":
@@ -387,13 +483,14 @@ def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
     with backend_flags():
         if fw.mesh is not None:
             fw = _gathered(fw)
-        return _fused_apply(fw, x, pol, _diag_blockin_fuse)
+        return _fused_apply(fw, x, pol, _diag_blockin_fuse, sites)
 
 
 def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict,
-                 blockin: str):
+                 blockin: str, sites: frozenset = QUANT_SITES):
     rc = fw.recips
     f32, bf16 = torch.float32, torch.bfloat16
+    q_blockin = "blockin" in sites
     # conv1 as a plain matmul reads f32; K2 and K6 read bf16
     c1_dt = f32 if pol["conv1"] == "torch" else bf16
 
@@ -413,7 +510,8 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict,
     # K1 writes the f32 its conv reads: faster, if by 0.1%, in every turn on
     # the H100 than bf16 widened after the space-to-depth layout copies,
     # which then move half the bytes (utils/bench_epilogue.py --stem)
-    xq = k2.quantize_act_pass(x, rc[0], nonneg=False, out_dtype=f32)
+    xq = (k2.quantize_act_pass(x, rc[0], nonneg=False, out_dtype=f32)
+          if "stem" in sites else x)
     y = _s2d_stem(xq, fw.stem, fw.stem_k)
     y, _ = k3.bn_epilogue(y, fw.stem.scale, fw.stem.shift, relu=True,
                           ftz=fw.stem.ftz)
@@ -434,8 +532,13 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict,
         if b == 0:
             # the stage input feeds the downsample conv (cuDNN) and conv1:
             # f32 only where conv1 reads f32 too
-            xq_sh = xr_q if xr_q is not None else k2.quantize_act_pass(
-                xr_raw, rc[sid + 1], out_dtype=c1_dt)
+            if xr_q is not None:
+                xq_sh = xr_q
+            elif q_blockin:
+                xq_sh = k2.quantize_act_pass(xr_raw, rc[sid + 1],
+                                             out_dtype=c1_dt)
+            else:
+                xq_sh = xr_raw.to(c1_dt)
             d = blk["down"]
             identity, _ = k3.bn_epilogue(_conv_f32(xq_sh, d), d.scale,
                                          d.shift, relu=False, ftz=d.ftz)
@@ -445,7 +548,9 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict,
             if xr_q is not None:
                 c1_in, c1_recip = xr_q, None
             else:
-                c1_in, c1_recip = xr_raw, rc[sid + 1]
+                # blockin off: the raw block output goes in unquantized
+                c1_in = xr_raw
+                c1_recip = rc[sid + 1] if q_blockin else None
 
         c1, c2, c3 = blk["conv1"], blk["conv2"], blk["conv3"]
         if b > 0 and s_idx in pol["chain"]:
@@ -460,7 +565,7 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict,
                 c2.scale, c2.shift, c3.scale, c3.shift, recip2=recips[0],
                 recip3=recips[1], recip_next=recips[2],
                 emit_raw=not (last and qn is not None),
-                emit_q=qn is not None, ftz=cw.ftz)
+                emit_q=qn is not None and (last or q_blockin), ftz=cw.ftz)
             if last:
                 xr_raw, xr_q = (q if qn is not None else raw), q
             else:
@@ -471,26 +576,23 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict,
         # written as the f32 operand cuDNN's conv2 reads
         if pol["conv1"] == "kernel":
             y1q = mm(c1_in, c1, relu=True, quant_in_recip=c1_recip,
-                     quant_out_recip=rc[sid + 2], out_dtype=f32)
+                     quant_out_recip=(rc[sid + 2] if "c1out" in sites
+                                      else None), out_dtype=f32)
         else:
             c1q = (c1_in if c1_recip is None
                    else k2.quantize_act_pass(c1_in, c1_recip, out_dtype=f32))
-            _, y1q = k3.bn_epilogue(mm_f32(c1q, c1), c1.scale, c1.shift,
-                                    relu=True, emit_raw=False,
-                                    quant_recip=rc[sid + 2], q_dtype=f32,
-                                    ftz=c1.ftz)
+            y1q = _post(mm_f32(c1q, c1), c1, "c1out" in sites, rc[sid + 2],
+                        f32, relu=True)
 
         # conv2 3x3 (stride): cuDNN, then BN+ReLU+quantize from f32
-        _, y2q = k3.bn_epilogue(
-            _conv_f32(y1q, c2), c2.scale, c2.shift, relu=True,
-            emit_raw=False, quant_recip=rc[sid + 3],
-            q_dtype=f32 if pol["conv3"] == "torch" else bf16, ftz=c2.ftz)
+        y2q = _post(_conv_f32(y1q, c2), c2, "c2out" in sites, rc[sid + 3],
+                    f32 if pol["conv3"] == "torch" else bf16, relu=True)
 
         # conv3 1x1: mm -> BN -> +identity -> ReLU -> block output; a
         # quantized output feeds the next conv1 (and at a stage end the
         # downsample conv), or K6 where the next block is on the chain
         if pol["conv3"] == "kernel":
-            end_q = last and qn is not None
+            end_q = last and qn is not None and "c3out" in sites
             xr_raw = mm(y2q, c3, relu=True, residual=_flat(identity),
                         quant_out_recip=rc[qn] if end_q else None,
                         out_dtype=c1_dt if end_q else bf16)
@@ -498,13 +600,19 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict,
         else:
             y3 = mm_f32(y2q, c3)
             if last:
+                end_q = qn is not None and "c3out" in sites
                 raw, q = k3.bn_epilogue(
                     y3, c3.scale, c3.shift, identity=identity, relu=True,
-                    emit_raw=qn is None,
-                    quant_recip=rc[qn] if qn is not None else None,
+                    emit_raw=not end_q,
+                    quant_recip=rc[qn] if end_q else None,
                     q_dtype=c1_dt, ftz=c3.ftz)
-                xr_raw = q if qn is not None else raw
+                xr_raw = q if end_q else raw
                 xr_q = q
+            elif not q_blockin:
+                xr_raw, _ = k3.bn_epilogue(y3, c3.scale, c3.shift,
+                                           identity=identity, relu=True,
+                                           ftz=c3.ftz)
+                xr_q = None
             else:
                 q_dt = bf16 if s_idx in pol["chain"] else c1_dt
                 post = dict(identity=identity, relu=True, ftz=c3.ftz)
@@ -528,7 +636,8 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict,
 
     # --- head: global average pool + quantized FC --------------------------
     xa = torch.mean(xr_raw.to(torch.float32), dim=(1, 2))
-    xq = k2.quantize_act_pass(xa, rc[53], out_dtype=f32)
+    xq = (k2.quantize_act_pass(xa, rc[53], out_dtype=f32)
+          if "head" in sites else xa)
     y = _mm_f32(xq, fw.fc_w)
     y = (y + fw.fc_b_over_kaw) * fw.kaw53
     return y.to(torch.bfloat16)

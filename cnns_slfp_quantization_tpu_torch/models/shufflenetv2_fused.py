@@ -35,6 +35,13 @@ sites is XLA's fused elementwise work in JAX, not a Pallas kernel; here it
 runs as PyTorch ops (``affine_f32``, ``sfp.quantize_layerout``,
 ``relu``).  The convolutions and matmuls take float32 tensors that hold
 bf16 values, under :func:`backend_flags`, as in :mod:`.resnet50_fused`.
+
+Over a model axis :func:`shard_weights` keeps each rank's out-channel
+shards (every conv's weight and folded affine, the classifier's
+columns).  Each forward gathers the affines K3 and the posts read whole;
+cuDNN's convs and the matmuls compute their out-channel shard and gather
+the channels, a depthwise conv (``res2``, ``short1``) from its own
+channels of the input.
 """
 
 from __future__ import annotations
@@ -55,6 +62,8 @@ from cnns_slfp_quantization_tpu_torch.models.resnet50_fused import (
     _flat,
     _mm_f32,
     bn_fold,
+    shard_conv,
+    whole_affine,
 )
 from cnns_slfp_quantization_tpu_torch.models.shufflenetv2 import (
     CONV5_ID,
@@ -65,6 +74,8 @@ from cnns_slfp_quantization_tpu_torch.models.shufflenetv2 import (
 from cnns_slfp_quantization_tpu_torch.ops import freeze, sfp
 from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
 from cnns_slfp_quantization_tpu_torch.ops.layers import relu
+from cnns_slfp_quantization_tpu_torch.parallel import comm
+from cnns_slfp_quantization_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass
@@ -89,6 +100,10 @@ class FusedWeights:
     fc_b: torch.Tensor     # float32(b) * float32(1/kaw)
     kaw_fc: torch.Tensor   # float32 0-d
     recips: list           # recips[i] = 1/Ka as JAX computes it
+    # the mesh whose model axis the tensors are sharded over, and the group
+    # the classifier's column shards are gathered over (shard_weights)
+    mesh: Optional[object] = None
+    fc_group: Optional[object] = None
 
 
 def prepare(model: ShuffleNetV2, *, device="cuda") -> FusedWeights:
@@ -152,12 +167,46 @@ def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
         raise ValueError(f"policy {policy!r}: the ShuffleNetV2 executor "
                          f"takes none")
     with backend_flags():
+        if fw.mesh is not None:
+            fw = _per_conv(fw, whole_affine, whole_affine)
         return _fused_apply(fw, x)
 
 
+def _per_conv(fw: FusedWeights, conv, mm) -> FusedWeights:
+    """``fw`` with ``conv`` applied to each OIHW conv and ``mm`` to each
+    ``[Cin, Cout]`` matmul weight."""
+    units = [dataclasses.replace(
+        u, res1=mm(u.res1), res2=conv(u.res2), res3=mm(u.res3),
+        short1=None if u.short1 is None else conv(u.short1),
+        short2=None if u.short2 is None else mm(u.short2))
+        for u in fw.units]
+    return dataclasses.replace(fw, stem=conv(fw.stem), units=units,
+                               conv5=mm(fw.conv5), mesh=None)
+
+
+def shard_weights(fw: FusedWeights, mesh) -> FusedWeights:
+    """What a rank of ``mesh`` stores of ``fw``: every conv's out-channel
+    shard over the model axis with its folded affine
+    (``resnet50_fused.shard_conv``) and the classifier's columns;
+    :func:`fused_apply` gathers per forward."""
+    fc = fw.fc_w.shape[1] % mesh_lib.axis_size(mesh, "model") == 0
+    return dataclasses.replace(
+        _per_conv(fw, lambda c: shard_conv(c, mesh),
+                  lambda c: shard_conv(c, mesh, 1)),
+        fc_w=mesh_lib.local_shard(fw.fc_w, (None, "model"), mesh)
+        if fc else fw.fc_w,
+        fc_b=mesh_lib.local_shard(fw.fc_b, ("model",), mesh)
+        if fc else fw.fc_b,
+        fc_group=mesh.get_group("model") if fc else None, mesh=mesh)
+
+
 def _mm(x: torch.Tensor, c: ConvKxK) -> torch.Tensor:
-    """1x1 conv of NHWC float32 bf16 values as a plain f32 matmul."""
-    return _mm_f32(_flat(x), c.w).reshape(*x.shape[:-1], c.w.shape[1])
+    """1x1 conv of NHWC float32 bf16 values as a plain f32 matmul (its
+    column shard, gathered, under a model group)."""
+    y = _mm_f32(_flat(x), c.w)
+    if c.tp_group is not None:
+        y = comm.all_gather_cat(y, -1, c.tp_group)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def _post_loq(y: torch.Tensor, c: ConvKxK) -> torch.Tensor:
@@ -214,5 +263,8 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor) -> torch.Tensor:
     # --- conv5 + BN + layer-output quantize + ReLU, mean, classifier -------
     y = _post_loq(_mm(quant(y, CONV5_ID), fw.conv5), fw.conv5).to(bf16)
     xa = torch.mean(y.to(f32), dim=(1, 2))
-    yl = _mm_f32(quant(xa, FC_ID), fw.fc_w)
-    return ((yl + fw.fc_b) * fw.kaw_fc).to(bf16)
+    yl = ((_mm_f32(quant(xa, FC_ID), fw.fc_w) + fw.fc_b)
+          * fw.kaw_fc).to(bf16)
+    if fw.fc_group is not None:      # the rank's classes: gather them
+        yl = comm.all_gather_cat(yl, -1, fw.fc_group)
+    return yl

@@ -7,7 +7,12 @@ images/s (``per_device_batch`` rows per data rank): **inference** through
 ``InferenceEngine(..., mesh=)`` (the fused executor with ``--fused``) and
 **QAT training** (forward, backward, DSGD, the gradient all-reduce of
 ``parallel.steps``).  The ranks beyond n wait.  A rate is the global batch
-over the slowest rank's time.  Run it in every rank:
+over the slowest rank's time.  Each row's ``timing`` says how its rate
+was timed: ``"graph"``, the forward as one CUDA graph replayed per step
+(``utils/profiling.py::scan_throughput``), where the mesh has no model
+axis and the ranks run on the card; ``"eager"`` otherwise, and always for
+training, whose step reduces over the mesh's groups (gloo or NCCL, which a
+graph does not capture).  Run it in every rank:
 
     torchrun --nproc_per_node 4 -m \\
         cnns_slfp_quantization_tpu_torch.parallel.scaling_bench \\
@@ -32,6 +37,7 @@ from cnns_slfp_quantization_tpu_torch.parallel import (
     make_mesh,
     multihost,
 )
+from cnns_slfp_quantization_tpu_torch.parallel import mesh as mesh_lib
 from cnns_slfp_quantization_tpu_torch.parallel import steps
 from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
 from cnns_slfp_quantization_tpu_torch.train import loop, optimizers
@@ -49,8 +55,10 @@ def _infer_ips(net, qbit, mesh, x, fused, device):
                           image_size=x.shape[1], fused=fused, device=device,
                           mesh=mesh)
     xs = steps.place_rows(mesh, x)
-    ips = scan_throughput(eng.forward, xs, steps=INFER_STEPS)
-    return comm.global_rate(xs.shape[0], ips, x.shape[0], mesh)
+    graph = xs.is_cuda and mesh_lib.axis_size(mesh, "model") == 1
+    ips = scan_throughput(eng.forward, xs, steps=INFER_STEPS, graph=graph)
+    return (comm.global_rate(xs.shape[0], ips, x.shape[0], mesh),
+            "graph" if graph else "eager")
 
 
 def _train_ips(net, qbit, mesh, x, device, optimizer="DSGD"):
@@ -63,16 +71,17 @@ def _train_ips(net, qbit, mesh, x, device, optimizer="DSGD"):
     y = torch.zeros((x.shape[0],), dtype=torch.int64, device=device)
     xs, ys = steps.place_batch(mesh, x, y)
     step = steps.jit_train_step(loop.make_train_step(model, opt))
-    ips = scan_train_throughput(step, state, xs, ys, steps=TRAIN_STEPS)
-    return comm.global_rate(xs.shape[0], ips, x.shape[0], mesh)
+    ips = scan_train_throughput(step, state, xs, ys, steps=TRAIN_STEPS,
+                                graph=False)
+    return comm.global_rate(xs.shape[0], ips, x.shape[0], mesh), "eager"
 
 
 def run(net: str, device_counts, per_device_batch: int, image_size: int,
         qbit: int = 8, model_axis: int = 1, fused: bool = False,
         mode: str = "infer", device: str = "cuda"):
     """The rows (``mode``, ``devices``, ``images_per_sec``,
-    ``scaling_efficiency``) of every count up to the world size, the same
-    list on every rank."""
+    ``scaling_efficiency``, ``timing``) of every count up to the world
+    size, the same list on every rank."""
     world = dist.get_world_size()
     results = {}
     for n in device_counts:
@@ -101,11 +110,12 @@ def run(net: str, device_counts, per_device_batch: int, image_size: int,
         if base is None:
             continue
         for n, row in results.items():
-            ips = row[kind]
-            eff = ips / (base * n / n0) if base else float("nan")
+            ips, timing = row[kind]
+            eff = ips / (base[0] * n / n0) if base[0] else float("nan")
             report.append({"mode": kind, "devices": n,
                            "images_per_sec": round(ips, 1),
-                           "scaling_efficiency": round(eff, 3)})
+                           "scaling_efficiency": round(eff, 3),
+                           "timing": timing})
     return report
 
 

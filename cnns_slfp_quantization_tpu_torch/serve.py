@@ -30,11 +30,11 @@ raises.
 mesh, every rank building the engine with the same arguments:
 ``batch_size`` is the global batch and each rank runs its ``batch_size //
 data`` rows; ``predict`` / ``classify`` return the whole batch's on every
-rank, as JAX returns a global array.  Over a model axis the fused
-ResNet-50 executor keeps out-channel shards (``resnet50_fused.
-shard_weights``) and the module path shards its layers
-(``parallel.mesh.shard_module``); the fused MobileNetV1 and ShuffleNetV2
-executors take the data axis only.
+rank, as JAX returns a global array.  Over a model axis every fused
+executor keeps out-channel shards (``shard_weights`` of
+``resnet50_fused``, ``mobilenetv1_fused`` and ``shufflenetv2_fused``),
+gathering per forward what its hand kernels read whole, and the module
+path shards its layers (``parallel.mesh.shard_module``).
 """
 
 from __future__ import annotations
@@ -147,12 +147,6 @@ class InferenceEngine:
             if batch_size % data:
                 raise ValueError(f"batch size {batch_size} not divisible by "
                                  f"the data-parallel mesh axis ({data})")
-            if fused and model_axis > 1 and FUSABLE[net] != "resnet50_fused":
-                raise NotImplementedError(
-                    f"the fused {FUSABLE[net]} executor takes the data axis "
-                    f"only (ROADMAP Queue 1: the fused MobileNetV1 / "
-                    f"ShuffleNetV2 executors under a model axis); serve "
-                    f"{net!r} with fused=False over a model axis")
         self.image_size = image_size or default_image_size(net)
         self.policy = policy
         if generator is None:

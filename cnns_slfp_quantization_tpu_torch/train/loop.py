@@ -77,6 +77,111 @@ def make_train_step(model: torch.nn.Module,
     return step
 
 
+class GraphedTrainStep:
+    """``train_step`` (a :func:`make_train_step` step) captured once in a
+    CUDA graph on ``images`` / ``labels``' shapes
+    (``utils.profiling.capture``); each call copies its batch into the
+    graph's inputs, writes the optimizer's learning rate at its count,
+    replays the graph and advances the count and ``state.step``, as an
+    eager step would.  It returns the step's metrics, tensors that the
+    next call overwrites.  The eager step the capture runs first moves the
+    state: the model's parameters and buffers, the optimizer's state and
+    counters, ``state.step`` and ``generator`` go back in place before the
+    capture, so that the replays continue from the state the caller gave,
+    bit for bit as eager steps would.  ``launches``: the hand kernels'
+    launches of one replay.
+
+    Dropout draws from ``generator``, registered with the graph: each
+    replay advances it as an eager step drawing from it would, so replay
+    i masks as eager step i on the same generator does (not as
+    ``train_epoch``, which seeds a generator per step).  Refused, with the
+    reason: an optimizer whose step reads host scalars (``capturable``
+    False: Adam, RMSprop), a state under a mesh (its step reduces over
+    gloo or NCCL and stays eager), a CPU batch, and a ``generator`` where
+    this torch cannot register one with a graph."""
+
+    def __init__(self, train_step: Callable, state: TrainState, images,
+                 labels, generator=None):
+        from cnns_slfp_quantization_tpu_torch.utils.profiling import capture
+
+        opt = state.optimizer
+        if not getattr(opt, "capturable", False):
+            raise ValueError(
+                f"{type(opt).__name__} reads host scalars in its step; a "
+                f"CUDA graph takes QSGD (DSGD, SSGD, SGD): time it eagerly "
+                f"(graph=False)")
+        if getattr(state, "mesh", None) is not None:
+            raise ValueError("a step under a mesh reduces over gloo or "
+                             "NCCL, which a CUDA graph does not capture: it "
+                             "runs eagerly (graph=False)")
+        if not images.is_cuda:
+            raise ValueError("a CUDA graph needs the batch on the card")
+        if generator is not None and not hasattr(torch.cuda.CUDAGraph,
+                                                 "register_generator_state"):
+            raise RuntimeError(
+                "this torch has no CUDAGraph.register_generator_state: a "
+                "dropout step drawing from its own generator cannot be "
+                "captured; time it eagerly (graph=False)")
+        self.state = state
+        self.images, self.labels = images.clone(), labels.clone()
+        saved = _snapshot(state, generator)
+        self.graph, self.metrics, self.launches = capture(
+            lambda: train_step(state, self.images, self.labels, generator),
+            images.device, before=lambda: _restore(state, saved, generator),
+            generator=generator)
+        state.step = saved["step"]      # the capture ran no step
+
+    def __call__(self, images, labels) -> dict:
+        self.images.copy_(images)
+        self.labels.copy_(labels)
+        self.state.optimizer.ready()
+        self.graph.replay()
+        self.state.optimizer.count += 1
+        self.state.step += 1
+        return self.metrics
+
+
+def _snapshot(state: TrainState, generator=None) -> dict:
+    opt = state.optimizer
+    return {
+        "generator": None if generator is None else generator.get_state(),
+        "model": {k: v.detach().clone() for k, v in
+                  state.model.state_dict(keep_vars=True).items()},
+        "opt": {p: {k: v.clone() for k, v in st.items()
+                    if isinstance(v, torch.Tensor)}
+                for p, st in opt.state.items()},
+        "count": opt.count, "step": state.step,
+        "stats": (None if getattr(opt, "stats", None) is None else
+                  {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                   for k, v in opt.stats.items()})}
+
+
+def _restore(state: TrainState, saved: dict, generator=None) -> None:
+    """Put the tensors of ``saved`` back in place (a graph about to be
+    captured reads these storages); optimizer state made since, zeros
+    (QSGD starts a momentum buffer from zero)."""
+    opt = state.optimizer
+    if generator is not None:
+        generator.set_state(saved["generator"])
+    with torch.no_grad():
+        for k, v in state.model.state_dict(keep_vars=True).items():
+            v.copy_(saved["model"][k])
+        for p, st in opt.state.items():
+            for k, v in st.items():
+                if not isinstance(v, torch.Tensor):
+                    continue
+                old = saved["opt"].get(p, {}).get(k)
+                if old is None:
+                    v.zero_()
+                else:
+                    v.copy_(old)
+        for k, v in (saved["stats"] or {}).items():
+            cur = opt.stats[k]
+            if isinstance(cur, torch.Tensor):    # counters made since: 0
+                cur.copy_(torch.as_tensor(v))
+    opt.count, state.step = saved["count"], saved["step"]
+
+
 def make_eval_step(model: torch.nn.Module) -> Callable:
     """``eval_step(images, labels) -> metrics``: top-1 / top-5 correct
     counts (imgnet_train_eval.py:199-204) in eval mode."""

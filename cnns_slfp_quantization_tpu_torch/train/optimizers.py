@@ -13,6 +13,15 @@ momentum, ``buf = m*buf + (1-dampening)*g`` from a zero buffer, nesterov
 uses ``g + m*buf``.  The learning rate is a float or a function of the
 optimizer's own step count (optax's ``count``), which ``state_dict`` keeps.
 
+Every scalar the QSGD update reads is a float32 0-d tensor on the
+parameters' device, made once (:meth:`QSGD._const`), and the learning rate
+is written into one such tensor before each step (:meth:`QSGD.ready`):
+nothing is copied from host memory during a step, so a CUDA graph can
+capture it (``train.loop.GraphedTrainStep``).  Under a capture the step
+leaves the rate and the count to the replayer, which writes the rate of
+its count before each replay.  Adam and RMSprop keep host scalars
+(``capturable = False``): the graph path refuses them.
+
 Bit for bit with JAX's jitted step on the CPU: XLA contracts a multiply
 into the add that consumes it (one fused multiply-add, one rounding)
 wherever the product has no other use, and folds ``1 + (|v| + 1)`` into
@@ -42,14 +51,12 @@ def _lr_at(lr: ScalarOrSchedule, count: int) -> np.float32:
     return np.float32(lr(count) if callable(lr) else lr)
 
 
-def _f32(v, device) -> torch.Tensor:
-    return torch.tensor(np.float32(v), device=device)
-
-
 class _Counted:
-    """The step count the learning rate reads, saved in ``state_dict``."""
+    """The step count the learning rate reads, saved in ``state_dict``.
+    ``capturable``: whether a CUDA graph may capture ``step``."""
 
     count: int = 0
+    capturable: bool = False
 
     def state_dict(self):
         sd = super().state_dict()
@@ -75,6 +82,7 @@ class QSGD(_Counted, torch.optim.Optimizer):
 
     model_group = None
     sharded: frozenset = frozenset()
+    capturable = True
 
     def __init__(self, params: Iterable, lr: ScalarOrSchedule, qbit: int,
                  rule: str, momentum: float = 0.9, dampening: float = 0.0,
@@ -90,6 +98,27 @@ class QSGD(_Counted, torch.optim.Optimizer):
                                       nesterov=nesterov))
         if len(self.param_groups) != 1:
             raise ValueError("QSGD takes one parameter group")
+        # (float32 bits, device) -> 0-d tensor; device -> the rate's tensor
+        self._consts, self._neg_lr = {}, {}
+
+    def _const(self, v, device) -> torch.Tensor:
+        """float32(v) as a 0-d tensor on ``device``, made once."""
+        key = (int(np.float32(v).view(np.int32)), device)
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = torch.tensor(np.float32(v), device=device)
+        return t
+
+    def ready(self) -> None:
+        """Write ``-lr`` at the current count into the tensor the update
+        reads: each eager step does it first, a graph's replayer before
+        each replay (a fill kernel, no copy from host memory)."""
+        dev = self.param_groups[0]["params"][0].device
+        t = self._neg_lr.get(dev)
+        if t is None:
+            t = self._neg_lr[dev] = torch.zeros((), dtype=torch.float32,
+                                                device=dev)
+        t.fill_(float(-_lr_at(self.lr, self.count)))
 
     def state_dict(self):
         sd = super().state_dict()
@@ -109,9 +138,10 @@ class QSGD(_Counted, torch.optim.Optimizer):
             moved = (sfp.quantize_weight(p, self.qbit)
                      - sfp.quantize_weight(pd, self.qbit)).abs()
             scale = torch.where(moved < np.float32(self.tol),
-                                _f32(2.0, p.device), _f32(0.0, p.device))
+                                self._const(2.0, p.device),
+                                self._const(0.0, p.device))
             return scale, 1.0 + scale
-        return None, pd.abs() + _f32(2.0, p.device)          # ssgd
+        return None, pd.abs() + self._const(2.0, p.device)      # ssgd
 
     def _count(self, flags, ps, sizes):
         """The number of set ``flags`` (one per element of ``ps``,
@@ -140,25 +170,30 @@ class QSGD(_Counted, torch.optim.Optimizer):
         if not ps:
             return loss
         dev = ps[0].device
-        lr_t = _lr_at(self.lr, self.count)
+        # under a capture the replayer writes the rate and counts the step
+        capturing = (dev.type == "cuda"
+                     and torch.cuda.is_current_stream_capturing())
+        if not capturing:
+            self.ready()
         m, damp = group["momentum"], group["dampening"]
         wd = group["weight_decay"]
         p = torch.cat([t.reshape(-1) for t in ps])
         g = torch.cat([t.grad.reshape(-1) for t in ps])
         if wd:
-            g = affine_f32(p, _f32(wd, dev), g)
+            g = affine_f32(p, self._const(wd, dev), g)
         if m:
             for t in ps:
                 if "momentum" not in self.state[t]:
                     self.state[t]["momentum"] = torch.zeros_like(t)
             buf = torch.cat([self.state[t]["momentum"].reshape(-1)
                              for t in ps])
-            gd = g if damp == 0 else g * _f32(1.0 - damp, dev)
-            buf = affine_f32(buf, _f32(m, dev), gd)
-            d = affine_f32(buf, _f32(m, dev), g) if group["nesterov"] else buf
+            gd = g if damp == 0 else g * self._const(1.0 - damp, dev)
+            buf = affine_f32(buf, self._const(m, dev), gd)
+            d = (affine_f32(buf, self._const(m, dev), g) if group["nesterov"]
+                 else buf)
         else:
             d = g
-        neg_lr = _f32(-lr_t, dev)
+        neg_lr = self._neg_lr[dev]
         if self.rule == "sgd":
             # the multiply by 1 + 0.0 folds away: p + d*(-lr), one rounding
             new = affine_f32(d, neg_lr, p)
@@ -177,7 +212,8 @@ class QSGD(_Counted, torch.optim.Optimizer):
             bufs = [self.state[t]["momentum"] for t in ps]
             torch._foreach_copy_(bufs, [v.view_as(t) for v, t in
                                         zip(buf.split(sizes), bufs)])
-        self.count += 1
+        if not capturing:
+            self.count += 1
         return loss
 
 

@@ -4,12 +4,17 @@ JAX ``utils/profiling.py``).
 Every number here is measured on the card: a function given CPU work, or
 run where there is no card, raises instead of timing the host.  The two
 ``scan_*`` functions (``parallel/scaling_bench.py``) are the exception:
-given CPU tensors they time the host clock, which the CPU tests read as a
-count of images per second and nothing else.
+given CPU tensors they loop eager calls and time the host clock, which the
+CPU tests read as a count of images per second and nothing else.  Given
+CUDA tensors they do what JAX's one jitted ``lax.scan`` does: the forward
+or the train step runs as one CUDA graph (:class:`GraphedForward`,
+``train.loop.GraphedTrainStep``) replayed per step, so that the host does
+not set the pace, timed by CUDA events.
 """
 
 from __future__ import annotations
 
+import re
 import statistics
 from typing import Callable
 
@@ -98,35 +103,172 @@ def _perturbed(x0, i: int):
     return (x0.float() * np.float32(1.0 + i * 1e-6)).to(x0.dtype)
 
 
-def scan_throughput(forward: Callable, x0, *, steps: int = 8) -> float:
+def capture(fn: Callable[[], object], device, before=None, generator=None):
+    """``fn`` captured in a CUDA graph, torch's whole-network recipe: one
+    eager call on a side stream first (it builds the kernels and what an
+    executor or optimizer lays out at its first call), then ``before()``,
+    then the capture, with ``generator`` registered where given.  Returns
+    (the graph, ``fn``'s output tensors from the capture, which each
+    replay overwrites, the hand kernels' launches of one replay: the
+    wrappers count a captured launch once, a replay runs it without
+    Python)."""
+    import torch
+
+    from cnns_slfp_quantization_tpu_torch import kernels
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    if before is not None:
+        before()
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    counts = kernels.launches()
+    with torch.cuda.graph(graph):
+        out = fn()
+    after = kernels.launches()
+    return graph, out, {k: after[k] - counts[k] for k in after}
+
+
+class GraphedForward:
+    """``forward`` captured once in a CUDA graph on ``x``'s shape, under
+    ``torch.inference_mode`` (:func:`capture`); each call copies its input
+    into the graph's and replays it, returning the graph's output tensor
+    (overwritten by the next call).  ``launches``: the hand kernels'
+    launches of one replay."""
+
+    def __init__(self, forward: Callable, x):
+        import torch
+
+        if not x.is_cuda:
+            raise ValueError("a CUDA graph needs the input on the card")
+        self.x = x.clone()
+
+        def run():
+            with torch.inference_mode():
+                return forward(self.x)
+
+        self.graph, self.out, self.launches = capture(run, x.device)
+
+    def __call__(self, x):
+        self.x.copy_(x)
+        self.graph.replay()
+        return self.out
+
+
+def _graph_mode(graph, x0) -> bool:
+    """The scans' mode: a CUDA graph on the card unless ``graph=False``;
+    never on the CPU."""
+    if graph is None:
+        return x0.is_cuda
+    if graph and not x0.is_cuda:
+        raise ValueError("graph=True needs CUDA tensors")
+    return bool(graph)
+
+
+def scan_throughput(forward: Callable, x0, *, steps: int = 8,
+                    graph=None) -> float:
     """Images per second of ``forward`` over ``steps`` calls on ``x0``
     perturbed per call as JAX's ``scan_throughput`` perturbs it (so no call
-    repeats another's input); the fastest of three timed runs."""
+    repeats another's input); the fastest of three timed runs after one
+    untimed run.  On the card the forward is one CUDA graph replayed per
+    call (:class:`GraphedForward`; ``graph=False``: eager calls, as on the
+    CPU)."""
     import torch
 
     xs = [_perturbed(x0, i) for i in range(steps)]
+    if _graph_mode(graph, x0):
+        graphed = GraphedForward(forward, x0)
 
-    def run():
-        with torch.inference_mode():
+        def run():
             for x in xs:
-                forward(x)
+                graphed(x)
+    else:
+        def run():
+            with torch.inference_mode():
+                for x in xs:
+                    forward(x)
 
     return x0.shape[0] * steps / _best_of_3(run, x0.device)
 
 
 def scan_train_throughput(train_step: Callable, state, x0, y0, *,
-                          steps: int = 8, generator=None) -> float:
+                          steps: int = 8, generator=None,
+                          graph=None) -> float:
     """Images per second of ``steps`` full train steps (forward, backward,
     optimizer) of ``train_step`` on ``x0`` perturbed per step as in JAX's
     ``scan_train_throughput``; the fastest of three timed runs after one
-    warm-up run.  The state advances through every step."""
-    xs = [_perturbed(x0, i) for i in range(steps)]
+    untimed run.  The state advances through every step of all four runs.
+    On the card the step is one CUDA graph replayed per step
+    (``train.loop.GraphedTrainStep``, which refuses what it cannot
+    capture; ``graph=False``: eager steps, as on the CPU and under a
+    mesh)."""
+    from cnns_slfp_quantization_tpu_torch.train.loop import GraphedTrainStep
 
-    def run():
-        for x in xs:
-            train_step(state, x, y0, generator)
+    xs = [_perturbed(x0, i) for i in range(steps)]
+    if _graph_mode(graph, x0):
+        graphed = GraphedTrainStep(train_step, state, x0, y0, generator)
+
+        def run():
+            for x in xs:
+                graphed(x, y0)
+    else:
+        def run():
+            for x in xs:
+                train_step(state, x, y0, generator)
 
     return x0.shape[0] * steps / _best_of_3(run, x0.device)
+
+
+def busy_ms(fn: Callable[[], object], calls: int = 3):
+    """(wall ms, kernel ms, {kernel class: ms}, {wrapper: launches}): CUDA
+    events around ``calls`` calls after one untimed call, and
+    torch.profiler's device time of their kernels over the same calls, by
+    :func:`kernel_class` (kernel ms None where it recorded none), all per
+    call; and the hand kernels the trace holds over all ``calls`` calls,
+    counted by name (:data:`HAND_KERNELS`): a CUDA graph's replay launches
+    them without Python, where no wrapper counts.  The idle share is
+    ``1 - kernel / wall``.
+
+    A trace can lose its first records: on the H100, after other traces in
+    one process, from a few to a few hundred, the same in trace after
+    trace.  So one call of ``fn`` and then a marker kernel (``_sleep``'s
+    ``spin_kernel``) go first, and only the records after the marker
+    count; a trace that lost the marker too raises."""
+    torch = _require_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda._sleep(1)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(evs) if "spin_kernel" in e.name]
+    if not marks:
+        raise RuntimeError(f"the trace lost its marker kernel ({len(evs)} "
+                           f"device records kept): not measured")
+    classes, launches = {}, dict.fromkeys(HAND_KERNELS, 0)
+    for e in evs[marks[-1] + 1:]:
+        c = kernel_class(e.name)
+        classes[c] = (classes.get(c, 0.0)
+                      + e.time_range.elapsed_us() / 1e3 / calls)
+        for name, pattern in HAND_KERNELS.items():
+            launches[name] += bool(re.search(pattern, e.name))
+    busy = sum(classes.values())
+    return start.elapsed_time(end) / calls, (busy or None), classes, launches
 
 
 def _hand_launches() -> int:
@@ -252,6 +394,19 @@ KERNEL_CLASSES = (
                     "Winograd")),
     ("cuBLAS", ("gemm", "cutlass", "cublas", "Kernel2", "splitKreduce")),
 )
+
+
+# kernel wrapper -> the name of the device kernel one call launches, as the
+# trace spells it (split-K's second pass, ``splitk_reduce``, not counted)
+HAND_KERNELS = {
+    "act_quantize": r"\bquantize_kernel<",
+    "slfp34_act_quantize": r"\bf32form_kernel<",
+    "qmm_fused": r"\bgemm_kernel<.*\bQmmEpi\b",
+    "bn_epilogue": r"\bepilogue_(slab|any)\b",
+    "fused_quant_matmul": r"\bgemm_kernel<.*\bFusedEpi\b",
+    "dw3x3": r"\bdw3x3_kernel<",
+    "bottleneck_chain": r"\bchain_kernel<",
+}
 
 
 def kernel_class(name: str) -> str:

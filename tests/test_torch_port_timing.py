@@ -86,3 +86,127 @@ _NARROW = ("void at::native::vectorized_elementwise_kernel<8, at::native::"
 ])
 def test_profile_counts_only_the_widening_copies(name, want):
     assert profiling.is_f32_copy(name) is want
+
+
+# ------------------------------------------------- the scans on the CPU
+def test_scans_run_eager_on_the_cpu():
+    """On CPU tensors both scans loop eager calls (no graph) over inputs
+    perturbed per step, one untimed and three timed runs of ``steps``:
+    the forward sees 4 * steps distinct inputs under inference mode, and
+    the train state advances 4 * steps steps (``state.step`` and the
+    optimizer's count).  ``graph=True`` refuses the CPU."""
+    from cnns_slfp_quantization_tpu_torch import models
+    from cnns_slfp_quantization_tpu_torch.train import loop, optimizers
+
+    x = torch.randn(2, 8, 8, 3, generator=torch.Generator().manual_seed(0))
+    seen = []
+
+    def forward(xx):
+        seen.append((float(xx.sum()), torch.is_inference_mode_enabled()))
+        return xx * 2
+
+    ips = profiling.scan_throughput(forward, x, steps=3)
+    assert ips > 0 and len(seen) == 12 and all(mode for _, mode in seen)
+    assert len({s for s, _ in seen[:3]}) == 3
+    with pytest.raises(ValueError, match="CUDA"):
+        profiling.scan_throughput(forward, x, graph=True)
+
+    model = models.create_model("mobilenet", 32, generator=torch.Generator()
+                                .manual_seed(0))
+    opt = optimizers.sgd(model.parameters(), 1e-3)
+    state = loop.TrainState(model, opt)
+    step = loop.make_train_step(model, opt)
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    y = torch.tensor([3, 7])
+    ips = profiling.scan_train_throughput(step, state, x, y, steps=2)
+    assert ips > 0 and state.step == 8 and opt.count == 8
+    with pytest.raises(ValueError, match="CUDA"):
+        profiling.scan_train_throughput(step, state, x, y, graph=True)
+
+
+@pytest.mark.parametrize("name", ["adam", "rmsprop", "dsgd"])
+def test_graphed_train_step_refuses_what_it_cannot_capture(name):
+    """A CUDA graph takes QSGD only (Adam and RMSprop read host scalars),
+    and refuses a batch on the CPU, before anything runs."""
+    from cnns_slfp_quantization_tpu_torch import models
+    from cnns_slfp_quantization_tpu_torch.train import loop, optimizers
+
+    model = models.create_model("mobilenet", 32, generator=torch.Generator()
+                                .manual_seed(0))
+    opt = optimizers.create_optimizer(name, model.parameters(), 1e-3, 8)
+    state = loop.TrainState(model, opt)
+    step = loop.make_train_step(model, opt)
+    x, y = torch.zeros(2, 32, 32, 3), torch.zeros(2, dtype=torch.int64)
+    match = "on the card" if name == "dsgd" else "host scalars"
+    with pytest.raises(ValueError, match=match):
+        loop.GraphedTrainStep(step, state, x, y)
+    assert state.step == 0 and opt.count == 0
+
+
+def test_capture_restores_what_its_warm_up_step_moved():
+    """Before a capture, what the eager warm-up step moved goes back in
+    place: the model's parameters and buffers, the optimizer's counters
+    and state (a momentum buffer made since: zeros), ``state.step``, and
+    the dropout generator, so that the first replay draws the masks the
+    first eager step would."""
+    from cnns_slfp_quantization_tpu_torch import models
+    from cnns_slfp_quantization_tpu_torch.train import loop, optimizers
+
+    model = models.create_model("mobilenet", 8, generator=torch.Generator()
+                                .manual_seed(0))
+    opt = optimizers.dsgd(model.parameters(), 1e-3, 8)
+    state = loop.TrainState(model, opt)
+    step = loop.make_train_step(model, opt)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    y = torch.tensor([3, 7])
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    saved = loop._snapshot(state, gen)
+    first = torch.rand(16, generator=gen)
+    step(state, x, y, gen)
+    assert state.step == 1 and opt.count == 1
+    assert not all(torch.equal(v, before[k])
+                   for k, v in model.state_dict().items())
+    loop._restore(state, saved, gen)
+    assert state.step == 0 and opt.count == 0
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    assert all(not st["momentum"].any() for st in opt.state.values())
+    assert torch.equal(torch.rand(16, generator=gen), first)
+
+
+_ANON = "(anonymous namespace)::"
+
+
+@pytest.mark.parametrize("name,want", [
+    (f"void {_ANON}quantize_kernel<8, false, false, true, true>(void "
+     f"const*, void*, long long, long long, float)", "act_quantize"),
+    (f"void {_ANON}f32form_kernel<true>(void const*, void*, long long)",
+     "slfp34_act_quantize"),
+    (f"void gemm::gemm_kernel<2, 128, false, {_ANON}QmmEpi>(CUtensorMap_st, "
+     f"CUtensorMap_st, gemm::Params, {_ANON}QmmEpi)", "qmm_fused"),
+    (f"void gemm::gemm_kernel<1, 64, true, {_ANON}FusedEpi>(CUtensorMap_st, "
+     f"CUtensorMap_st, gemm::Params, {_ANON}FusedEpi)", "fused_quant_matmul"),
+    (f"void gemm::splitk_reduce<{_ANON}QmmEpi>(float const*, int, long long, "
+     f"int, {_ANON}QmmEpi)", None),
+    (f"void {_ANON}epilogue_slab<false, true, true, 0, true>({_ANON}Args)",
+     "bn_epilogue"),
+    (f"{_ANON}epilogue_any({_ANON}Args, bool, bool)", "bn_epilogue"),
+    (f"void {_ANON}dw3x3_kernel<true, false, 1>({_ANON}Args)", "dw3x3"),
+    (f"void {_ANON}chain_kernel<true>(CUtensorMap_st, CUtensorMap_st)",
+     "bottleneck_chain"),
+    ("void cutlass::Kernel2<cutlass_80_tensorop_s1688gemm_64x64_16x6_tn_"
+     "align4>(cutlass_80_tensorop_s1688gemm_64x64_16x6_tn_align4::Params)",
+     None),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "FillFunctor<float>, std::array<char*, 1ul> >(int, at::native::"
+     "FillFunctor<float>, std::array<char*, 1ul>)", None),
+])
+def test_hand_kernels_are_counted_by_their_trace_names(name, want):
+    """``busy_ms`` counts a wrapper's launches in a trace by its kernel's
+    name: each hand kernel's name matches its wrapper alone, and split-K's
+    second pass, cuBLAS's and PyTorch's kernels match none."""
+    import re
+
+    got = [w for w, p in profiling.HAND_KERNELS.items() if re.search(p, name)]
+    assert got == ([want] if want else [])
