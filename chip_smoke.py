@@ -57,18 +57,31 @@
    kernels of a few microseconds time the host), except K6's and its
    route's, which are event times.
 3. Paths, each with the launch counts reset just before it and read just
-   after it, over requests of 64, 64 and 17 images (one of 64 in the zoo):
+   after it, over requests of 64, 64 and 17 images (one of 64 in the zoo).
+   The engine serves through one CUDA graph: the path's first request
+   captures it, so the wrappers count the capture's eager lead-in and its
+   recording (twice a forward's launches) and the replays launch without
+   Python.  On every served path the engine's graph is then held against
+   its eager forward (its private ``_eager``): ``predict`` on a request and
+   on one longer than the batch (its last chunk padded) bit-equal through
+   both, ``forward(x1)`` then ``forward(x2)`` leaving the first result as
+   it was, the hand kernels of a replay (counted by name in the trace,
+   ``profiling.busy_ms``) those an eager forward's wrappers count, and
+   ``throughput()`` against the eager forward timed the same way, in turns
+   (graph, eager, eager, graph), each with its idle share and its kernel
+   time by class; a summary line per path is printed at the end.
    - ResNet-50 fused executor with K6 off, ``InferenceEngine("resnet",
      qbit=8, policy={"chain": frozenset()})``, JAX's default placement (K1
      3, K2 32, K3 21 per forward); then the same weights on the CPU
      (cosine > 0.995, same top-1), packed uint8 weights (bit-equal logits),
-     ``policy={"conv3": "torch"}`` (K3 dual 12 times per forward);
+     ``policy={"conv3": "torch"}`` (K3 dual 12 times per forward, counted
+     on the eager forward; its graph checked as above);
    - ResNet-50 fused executor under the default policy,
      ``InferenceEngine("resnet", qbit=8)``, which runs stages 2 and 3's
      stride-1 bottlenecks on K6 (K1 5, K2 18, K3 14, K6 7 per forward),
      held against chain off's logits and the CPU's (cosine > 0.995, same
-     top-1), packed weights (bit-equal logits), images/s at batch 64 and 256
-     in turns with chain off;
+     top-1), packed weights (bit-equal logits), images/s at batch 64 in
+     turns with chain off;
    - SqueezeNet 1.0 and AlexNet on the module path with packed weights,
      ``InferenceEngine(net, qbit=8, pack_weights=True, use_pallas=None)``
      (K4 17 and 3 per forward, K1 9 and 5); then the CPU (cosine > 0.995,
@@ -101,6 +114,12 @@
      same weights directly;
    - ResNet-50 at qbit 7 on the module path (K1 54 per forward, its qbit-7
      forms), against the CPU;
+   - every other path the engine serves, through its graph against its
+     eager forward as above: ResNet-50 under ``policy={"conv1":
+     "torch"}``, CIFAR MobileNetV1 under ``policy={"dw": "torch"}``, the
+     float-frozen module path of every net of the registry, and the packed
+     one of CIFAR MobileNet, ``mobilenet_swish`` and
+     ``shufflenetv2_swish``, shipped scales;
    - the zoo, one request of 64 each: VGG16 and VGG16-GELU at 32x32
      (K4 3, K1 13), the ResNet-50 STL / Swish variants at 224x224 (K4 37,
      K1 17), packed with derived scales, and InceptionV3 (float32 only);
@@ -112,9 +131,9 @@
    of the path, the calls adding up to the launches the path counts, then
    held against their plain versions and timed; K4's copies of x into
    padded channels timed apart), and
-   images/s at batch 64 of each against the unquantized float32 module
-   path (``qbit=32, compute_dtype=None``), plus the fused executors' at
-   batch 256.
+   images/s at batch 64 of each (``throughput()``, the engine's graph)
+   against the unquantized float32 module path (``qbit=32,
+   compute_dtype=None``).
    Then SLFP8 quantization-aware training of CIFAR ``mobilenet`` (full
    width, batch 256, bf16, DSGD), scales from one training-mode float32
    forward (absmax / 15.5):
@@ -147,11 +166,9 @@
      launches); SqueezeNet 1.0's dropout step at 224, batch 32, captured
      with its generator registered: 4 replays give the eager steps'
      dropout outputs, losses, weights and momentum bit for bit, about
-     half the nonzero inputs dropped, another mask each step; fused
-     ResNet-50's forward at batch 64 as a graph (logits bit-equal to
-     eager, K1 5, K2 18, K3 14, K6 7 a replay), ``scan_throughput`` in
-     turns the same way; fused CIFAR MobileNetV1's at batch 256 (K1 2,
-     K3 18, K5 9 a replay).
+     half the nonzero inputs dropped, another mask each step; the fused
+     CIFAR MobileNetV1 engine's graph at batch 256 (K1 2, K3 18, K5 9 a
+     replay), checked as every served path is.
    Then the PTQ workflow:
    - calibrate -> serve: the float32 ResNet-50 (the engine's seed-0
      weights, ``capture="absmax"``, exact float32) over 256 images at
@@ -187,7 +204,8 @@
      ceiling (raw f32 and bf16 outputs) against its plain version.
    K1 and K3 at every site of these paths are held against their plain
    versions and timed as above.
-4. A torch.profiler breakdown per forward of the ResNet-50 fused executor
+4. A torch.profiler breakdown per eager forward of the ResNet-50 fused
+   executor
    (default ``chain={2,3}``, chain off, and on the freshly calibrated
    constants), the MobileNetV1 fused executor
    (both ``dw`` routes), the ShuffleNetV2 fused executor and SqueezeNet
@@ -200,15 +218,17 @@
      deterministic algorithms), and each step's time in 6 turns against the
      setting before the repair;
    - NCCL at world size 1, mesh 1x1: ``InferenceEngine("resnet", qbit=8,
-     mesh=)`` gives logits bit-equal to the engine without it, and one
-     route-B DSGD step through ``parallel.steps`` the plain step's bits,
-     each at the unsharded launches;
+     mesh=)`` gives, through its graph, logits bit-equal to the engine
+     without it, and one route-B DSGD step through ``parallel.steps`` the
+     plain step's bits, each at the unsharded launches;
    - gloo with 2 ranks sharing the card (NCCL refuses two ranks on one
      GPU), spawned after the kernels are built: fused ResNet-50 at batch
-     64 on a 2x1 mesh (each rank's 32 rows bit-equal to an unsharded
-     engine at batch 32) and a 1x2 mesh (cosine > 0.999 and the same top-1,
-     the hand kernels on gathered weights), K1 5, K2 18, K3 14, K6 7 a
-     forward on each rank; fused CIFAR MobileNetV1 on 2x1 (K1 2, K3 18, K5
+     64 on a 2x1 mesh (each rank's 32 rows, through its graph, bit-equal
+     to an unsharded engine at batch 32) and a 1x2 mesh (cosine > 0.999
+     and the same top-1, the hand kernels on gathered weights; eager, the
+     engine's model-axis rule, as ``graphed`` says), K1 5, K2 18, K3 14,
+     K6 7 a forward on each rank (a graphed engine's run counts its
+     capture: twice that); fused CIFAR MobileNetV1 on 2x1 (K1 2, K3 18, K5
      9; rows bit-equal); SqueezeNet's packed module path on 1x2 (K4 17 on
      column shards, K1 9; cosine > 0.999 and the same top-1); one DSGD step of CIFAR mobilenet at batch 256 on
      2x1 and on 1x2 (K4 on column shards) against the single-rank step:
@@ -233,8 +253,11 @@
    time, plain version, ``torch.matmul`` unfused and the bound.
 
 The line before the last is one JSON object with, for each kernel, its
-launches over the run of its first path (``launches``, three forwards) and
-per forward, and, per forward at batch 64 on that path, its time, its plain
+launches over the run of its first path (``launches``: the wrappers'
+count; a served path's run captures the engine's graph, two forwards'
+launches, and its replays run no wrapper) and per forward (a replay's, by
+kernel name in the trace, equal to an eager forward's), and, per forward
+at batch 64 on that path, its time, its plain
 version's time, the matching PyTorch call's time where one exists, and its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over the card's peak for their type.  ``by_path`` gives the same
@@ -454,7 +477,9 @@ def _mesh_rank(rank, world, port, out, ka, kw, scales):
 
 
 def _counted_run(fn):
-    """fn() with the launch counts reset just before and read just after."""
+    """fn() with the launch counts reset just before and read just after.
+    A graphed engine's first call inside it captures its graph: the
+    wrappers count the capture's eager lead-in and its recording."""
     import torch
 
     from cnns_slfp_quantization_tpu_torch import kernels
@@ -483,10 +508,10 @@ def _mesh_resnet(**_):
     for shape in ((2, 1), (1, 2)):
         mesh = make_mesh(*shape)
         eng = InferenceEngine("resnet", batch_size=64, mesh=mesh, **kw)
-        eng.predict(x[:1])                                # warm-up
         got, counts = _counted_run(lambda: eng.predict(x))
         i = ml.axis_rank(mesh, "data")
         res[shape] = {"got": got, "counts": counts, "i": i,
+                      "graphed": eng.graphed,
                       "ips": eng.throughput(iters=8)}
     res["want"] = want
     return res
@@ -505,9 +530,9 @@ def _mesh_module(**_):
               seed=0)
     want = InferenceEngine("squeezenet", **kw).predict(x)
     eng = InferenceEngine("squeezenet", mesh=make_mesh(1, 2), **kw)
-    eng.predict(x[:1])
     got, counts = _counted_run(lambda: eng.predict(x))
-    return {"got": got, "want": want, "counts": counts}
+    return {"got": got, "want": want, "counts": counts,
+            "graphed": eng.graphed}
 
 
 def _mesh_mobilenet(**_):
@@ -524,10 +549,9 @@ def _mesh_mobilenet(**_):
     mesh = make_mesh(2, 1)
     eng = InferenceEngine("mobilenet", qbit=8, batch_size=64, seed=0,
                           mesh=mesh)
-    eng.predict(x[:1])
     got, counts = _counted_run(lambda: eng.predict(x))
     return {"got": got, "want": want, "counts": counts,
-            "i": ml.axis_rank(mesh, "data")}
+            "i": ml.axis_rank(mesh, "data"), "graphed": eng.graphed}
 
 
 def _mesh_fused_tp(scales, **_):
@@ -555,7 +579,7 @@ def _mesh_fused_tp(scales, **_):
         got, counts = _counted_run(lambda: eng.predict(x))
         torch.cuda.synchronize()
         res[net] = {"got": got, "want": want, "counts": counts,
-                    "s": time.perf_counter() - t0}
+                    "s": time.perf_counter() - t0, "graphed": eng.graphed}
     return res
 
 
@@ -878,7 +902,7 @@ def main() -> int:
         backend_flags,
         exact_f32,
     )
-    from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
+    from cnns_slfp_quantization_tpu_torch.serve import FUSABLE, InferenceEngine
     from cnns_slfp_quantization_tpu_torch.utils import (
         bench_epilogue,
         bench_gemm,
@@ -1676,20 +1700,199 @@ def main() -> int:
     requests = [rng.standard_normal((n, 224, 224, 3)).astype(np.float32)
                 for n in (64, 64, 17)]
 
+    # ----------------------------------------- graphs: traces and helpers
+    from cnns_slfp_quantization_tpu_torch.utils.profiling import (
+        HAND_KERNELS,
+        _perturbed,
+        busy_ms,
+        scan_throughput,
+        scan_train_throughput,
+    )
+
+    def bits(ts):
+        """The bytes of each tensor, for bit-for-bit comparisons."""
+        return [t.detach().reshape(-1).contiguous().view(torch.uint8)
+                for t in ts]
+
+    def same_bytes(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+
+    BUSY_CALLS = 3
+
+    def traced(label, fn):
+        """Wall, kernel time by class and idle share per call of ``fn``
+        over BUSY_CALLS calls (``profiling.busy_ms``), printed: {"wall",
+        "busy", "idle" (None where the profiler recorded no kernel),
+        "classes", "launched": the hand kernels' launches the trace holds
+        over the calls}."""
+        wall, busy, classes, launched = busy_ms(fn, calls=BUSY_CALLS)
+        launched = {k: n for k, n in launched.items() if n}
+        out = dict(wall=wall, busy=busy, idle=None, classes=classes,
+                   launched=launched)
+        if busy is None:
+            print(f"  {label}: wall {wall:.3f} ms; the profiler recorded no "
+                  f"kernel (idle share not measured)", flush=True)
+            return out
+        out["idle"] = 1 - busy / wall
+        print(f"  {label}: wall {wall:.3f} ms, kernels {busy:.3f} ms, idle "
+              f"share {out['idle']:.3f}; by class: " + ", ".join(
+                  f"{c} {ms:.3f}" for c, ms in sorted(classes.items()))
+              + f" ms; hand kernels in the trace over {BUSY_CALLS} calls "
+              f"{launched}", flush=True)
+        return out
+
+    def busy_line(label, fn):
+        """(the idle share or None, the hand kernels' launches) of
+        :func:`traced`."""
+        t = traced(label, fn)
+        return t["idle"], t["launched"]
+
+    def replayed(path, label, graphed, per_call):
+        """The idle share of ``graphed``'s replays; the hand kernels their
+        trace holds must be ``per_call`` (counted at the capture) times the
+        replays, and that count is the path's launches."""
+        want = {k: n * BUSY_CALLS for k, n in per_call.items()
+                if n and k in HAND_KERNELS}
+        idle, launched = busy_line(label, graphed)
+        assert launched == want, (label, launched, want)
+        for key, name in (("k1", "act_quantize"), ("k2", "qmm_fused"),
+                          ("k3", "bn_epilogue"), ("k4", "fused_quant_matmul"),
+                          ("k5", "dw3x3"), ("k6", "bottleneck_chain")):
+            if name in launched:
+                rows[key].counted(path, launched[name], BUSY_CALLS)
+        return idle
+
+    # The engine serves through one CUDA graph on the card: its first
+    # call captures the forward (the wrappers count the capture's eager
+    # lead-in and its recording, each a forward's launches), and a replay
+    # launches the hand kernels without Python, so the replays' launches
+    # are counted by kernel name in their trace.  The eager forward, the
+    # engine's private ``_eager``, is the A/B.
+    def eager_forward(eng, x):
+        with torch.inference_mode():
+            return eng._eager(x)
+
+    def eager_predict(eng, images):
+        """``eng.predict`` through the eager forward: the same chunks, each
+        padded to the engine's batch."""
+        out = []
+        for s in range(0, images.shape[0], eng.batch_size):
+            chunk = images[s:s + eng.batch_size]
+            pad = eng.batch_size - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate(
+                    [chunk, np.zeros((pad,) + chunk.shape[1:], np.float32)])
+            y = eager_forward(eng, torch.from_numpy(chunk).to(dev))
+            out.append(y[:eng.batch_size - pad].float().cpu().numpy())
+        return np.concatenate(out)
+
+    def eager_throughput(eng, iters):
+        """``eng.throughput(iters)`` timed the same way on the eager
+        forward."""
+        x = torch.zeros(eng.input_shape, dtype=torch.float32, device=dev)
+        return scan_throughput(eng._eager, x, steps=iters, graph=False)
+
+    def same_logits(a, b):
+        return a.shape == b.shape and np.array_equal(
+            np.ascontiguousarray(a).view(np.uint32),
+            np.ascontiguousarray(b).view(np.uint32))
+
+    # forwards of each throughput() in the graph turns: 8, or fewer where
+    # an eager forward is long (at least 2; a timed run of about 100 ms)
+    TURN_ITERS, TURN_MS = 8, 100.0
+    engine_graphs = {}  # path -> the graph / eager readings, for the summary
+
+    def graph_checks(eng, path, reqs, classes):
+        """The engine's graph against its eager forward on one served path
+        (the graph captured already, or at its first call here):
+        ``predict`` on the first request and on one longer than the batch
+        (its last chunk padded) bit-equal through both; ``forward(x1)``
+        then ``forward(x2)`` leaves the first result as it was; the hand
+        kernels a replay launches, counted by name in the trace, those the
+        wrappers count in an eager forward; ``throughput()`` in turns
+        against the eager forward timed the same way (graph, eager, eager,
+        graph), with each mode's idle share and kernel time by class.
+        Returns the eager forward's launches per forward."""
+        assert eng.graphed, path
+        b = eng.batch_size
+        long = np.concatenate([reqs[0][:b], reqs[-1][:9]])
+        assert long.shape[0] > b and long.shape[0] % b, long.shape
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        eager_logits = [eager_predict(eng, r) for r in (reqs[0], long)]
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        fwds = -(-reqs[0].shape[0] // b) - (-long.shape[0] // b)
+        assert all(n % fwds == 0 for n in counts.values()), (path, counts)
+        per_fwd = {k: n // fwds for k, n in counts.items() if n}
+        graph_logits = [eng.predict(r) for r in (reqs[0], long)]
+        for g, e in zip(graph_logits, eager_logits):
+            assert g.shape[-1] == classes and np.isfinite(g).all(), path
+            assert same_logits(g, e), f"{path}: graph logits differ"
+        x1 = torch.from_numpy(reqs[0][:b]).to(dev)
+        x2 = torch.from_numpy(long[-b:]).to(dev)
+        y1 = eng.forward(x1)
+        kept = y1.clone()
+        y2 = eng.forward(x2)
+        assert y1.data_ptr() != y2.data_ptr() and same_bits(y1, kept), \
+            f"{path}: a forward's result was overwritten"
+        ran = {"graph": traced(f"{path} graph replay",
+                               lambda: eng._dispatch(x1)),
+               "eager": traced(f"{path} eager forward",
+                               lambda: eager_forward(eng, x1))}
+        want = {k: n * BUSY_CALLS for k, n in per_fwd.items()
+                if k in HAND_KERNELS}
+        for mode, t in ran.items():
+            assert t["launched"] == want, (path, mode, t["launched"], want)
+        iters = max(2, min(TURN_ITERS,
+                           round(TURN_MS / ran["eager"]["wall"])))
+        ips = {"graph": [], "eager": []}
+        for mode in ("graph", "eager", "eager", "graph"):
+            ips[mode].append(eng.throughput(iters=iters) if mode == "graph"
+                             else eager_throughput(eng, iters))
+        mean = {k: sum(v) / len(v) for k, v in ips.items()}
+        engine_graphs[path] = {
+            "batch": b, "iters": iters, "graph_ips": ips["graph"],
+            "eager_ips": ips["eager"],
+            "ratio": mean["graph"] / mean["eager"],
+            "idle": {m: t["idle"] for m, t in ran.items()},
+            "wall_ms": {m: t["wall"] for m, t in ran.items()},
+            "kernel_ms": {m: t["busy"] for m, t in ran.items()},
+            "classes": {m: t["classes"] for m, t in ran.items()},
+            "per_replay": {k: n // BUSY_CALLS for k, n in want.items()}}
+        print(f"  {path} engine graph: predict bit-equal to eager (a padded "
+              f"chunk included), forward results kept, launches a replay "
+              f"{engine_graphs[path]['per_replay']} = eager's; throughput"
+              f"(iters={iters}) images/s at batch {b} in turns: graph "
+              f"{[round(v, 1) for v in ips['graph']]}, eager "
+              f"{[round(v, 1) for v in ips['eager']]}; graph / eager "
+              f"{engine_graphs[path]['ratio']:.3f} ({card})", flush=True)
+        return per_fwd
+
     def serve(eng, path, want, reqs=requests, classes=1000):
-        """The path's run: counts reset just before the requests (one
-        forward each) and read just after; ``want`` maps wrapper ->
-        launches per forward, every other wrapper must stay at 0."""
+        """The path's run through the engine's graph: counts reset just
+        before the requests, whose first ``predict`` captures the graph,
+        and read just after.  ``want`` maps wrapper -> launches per
+        forward: the capture counts twice that (its eager lead-in and the
+        recording; the replays run no wrapper), every other wrapper must
+        stay at 0.  Then :func:`graph_checks`, whose eager forward must
+        launch ``want``; the path's row keeps the capture's count and, per
+        forward, a replay's launches from the trace."""
         fwd = len(reqs)
-        eng.predict(reqs[0][:1])              # warm-up: cuDNN plans
+        assert eng.graphed and eng._graph is None, path
         torch.cuda.synchronize()
         kernels.reset_launches()
         logits = [eng.predict(r) for r in reqs]
         torch.cuda.synchronize()
         counts = kernels.launches()
-        print(f"  {path}: launches over {fwd} requests: {counts}", flush=True)
+        print(f"  {path}: launches over {fwd} requests (the first call "
+              f"captures the graph): {counts}", flush=True)
         for name, n in counts.items():
-            assert n == fwd * want.get(name, 0), (name, counts, want)
+            assert n == 2 * want.get(name, 0), (name, counts, want)
+        per_fwd = graph_checks(eng, path, reqs, classes)
+        assert per_fwd == {k: v for k, v in want.items() if v}, \
+            (path, per_fwd, want)
         for key, name in (("k1", "act_quantize"), ("k2", "qmm_fused"),
                           ("k3", "bn_epilogue"), ("k4", "fused_quant_matmul"),
                           ("k5", "dw3x3"), ("k6", "bottleneck_chain")):
@@ -1697,7 +1900,7 @@ def main() -> int:
             # one); the counts of every path are asserted above
             if want.get(name) and (path in rows[key].paths
                                    or path == rows[key].main):
-                rows[key].counted(path, counts[name], fwd)
+                rows[key].counted(path, counts[name], 2)
         for r, lg in zip(reqs, logits):
             assert lg.shape == (r.shape[0], classes) and np.isfinite(lg).all()
         print(f"  logits[0, :4] = {logits[0][0, :4]}, top-1 of the last "
@@ -1739,31 +1942,26 @@ def main() -> int:
         eng3 = InferenceEngine("resnet", qbit=8, batch_size=B,
                                image_size=224, seed=0,
                                policy={"conv3": "torch", **NO_CHAIN})
-        eng3.predict(requests[0][:1])
         kernels.reset_launches()
-        l3 = eng3.predict(requests[0])
+        l3 = eager_predict(eng3, requests[0])
         counts3 = kernels.launches()
         assert counts3["bn_epilogue_dual"] == 12, counts3
         assert counts3["qmm_fused"] == 16, counts3
         c3 = cos(l3, logits[0])
-        print(f"  policy conv3=torch: {counts3}, cos {c3:.6f}", flush=True)
+        print(f"  policy conv3=torch (eager): {counts3}, cos {c3:.6f}",
+              flush=True)
         assert c3 > 0.995
         assert same_top1(l3, logits[0])
+        graph_checks(eng3, "resnet_fused_conv3_torch", requests, 1000)
+        del eng3
 
         fp32 = InferenceEngine("resnet", qbit=32, batch_size=B,
                                image_size=224, seed=0, compute_dtype=None)
         lf = fp32.predict(requests[0][:8])
         assert np.isfinite(lf).all()
-        tp = {}
-        for bs in (64, 256):
-            x = torch.from_numpy(rng.standard_normal(
-                (bs, 224, 224, 3)).astype(np.float32)).to(dev)
-            tp[f"slfp8_b{bs}"] = throughput(lambda: eng.forward(x), bs)
-            tp[f"fp32_b{bs}"] = throughput(lambda: fp32.forward(x), bs)
-        for key, val in tp.items():
-            print(f"  throughput {key}: {val:.1f} images/s", flush=True)
-        print(f"  SLFP8 / fp32: b64 {tp['slfp8_b64'] / tp['fp32_b64']:.3f}, "
-              f"b256 {tp['slfp8_b256'] / tp['fp32_b256']:.3f}", flush=True)
+        tp8 = images_per_s(eng, "resnet_fused_slfp8")
+        tp32 = images_per_s(fp32, "resnet_fp32")
+        print(f"  SLFP8 / fp32 b{B}: {tp8 / tp32:.3f}", flush=True)
         return eng, logits[0]
 
     @phase("path: InferenceEngine resnet SLFP8 fused executor, default "
@@ -1797,27 +1995,18 @@ def main() -> int:
             "packed logits differ from float-frozen under chain={2,3}"
         print("  packed uint8 weights: logits bit-equal", flush=True)
         del packed
-        tp = {}
-        for bs in (64, 256):
-            x = torch.from_numpy(rng.standard_normal(
-                (bs, 224, 224, 3)).astype(np.float32)).to(dev)
-            # in turns: chain off, chain, chain, chain off
-            d1 = throughput(lambda: fused_eng.forward(x), bs)
-            c1 = throughput(lambda: eng.forward(x), bs)
-            c2 = throughput(lambda: eng.forward(x), bs)
-            d2 = throughput(lambda: fused_eng.forward(x), bs)
-            tp[bs] = (c1, c2, d1, d2)
-            print(f"  throughput b{bs}: chain={{2,3}} (default) {c1:.1f}, "
-                  f"{c2:.1f}; chain off {d1:.1f}, {d2:.1f} images/s; chain "
-                  f"/ off {(c1 + c2) / (d1 + d2):.3f}", flush=True)
+        # in turns: chain off, chain, chain, chain off (graph throughput)
+        d1, c1, c2, d2 = (images_per_s(e, label) for e, label in (
+            (fused_eng, "resnet_chain_off"), (eng, "resnet_chain"),
+            (eng, "resnet_chain"), (fused_eng, "resnet_chain_off")))
+        print(f"  b{B}: chain={{2,3}} (default) / off "
+              f"{(c1 + c2) / (d1 + d2):.3f}", flush=True)
         return eng
 
-    def images_per_s(eng, label, batch=B):
-        x = torch.from_numpy(rng.standard_normal(
-            (batch, eng.image_size, eng.image_size, 3)).astype(
-                np.float32)).to(dev)
-        ips = throughput(lambda: eng.forward(x), batch)
-        print(f"  throughput {label}_b{batch}: {ips:.1f} images/s",
+    def images_per_s(eng, label):
+        """``eng.throughput()``: its graph at its batch, JAX's rule."""
+        ips = eng.throughput()
+        print(f"  throughput {label}_b{eng.batch_size}: {ips:.1f} images/s",
               flush=True)
         return ips
 
@@ -1856,7 +2045,7 @@ def main() -> int:
         plain = InferenceEngine(net, qbit=8, batch_size=B, pack_weights=True,
                                 use_pallas=False, seed=0)
         kernels.reset_launches()
-        lx = plain.predict(requests[0])
+        lx = eager_predict(plain, requests[0])
         assert kernels.launches()["fused_quant_matmul"] == 0
         cx = cos(lx, logits[0])
         print(f"  use_pallas=False against None: cos {cx:.6f}", flush=True)
@@ -1891,7 +2080,6 @@ def main() -> int:
         print(f"  against the fused executor: cos {c:.6f}", flush=True)
         assert c > 0.995
         assert same_top1(logits[0], fused_logits)
-        images_per_s(eng, "resnet_module_slfp8_packed_k4")
 
     # ------------------------------------------------------ MobileNetV1 paths
     cifar_requests = [rng.standard_normal((n, 32, 32, 3)).astype(np.float32)
@@ -1911,7 +2099,7 @@ def main() -> int:
                 ka[i] = max(ka.get(i, 0.0), float(inp[0].abs().max()))
                 kw[i] = float(m.weight.abs().max())
             hooks.append(layer.register_forward_hook(hook))
-        fp32.predict(images)
+        eager_predict(fp32, images)   # a replay runs no hook
         for h in hooks:
             h.remove()
         n = max(ka) + 1
@@ -1954,14 +2142,11 @@ def main() -> int:
         del packed
         return eng, sc, logits[0], fp32
 
-    def throughputs(eng, fp32, label, batches):
-        tp = {}
-        for bs in batches:
-            tp[f"slfp8_b{bs}"] = images_per_s(eng, f"{label}_slfp8", bs)
-            tp[f"fp32_b{bs}"] = images_per_s(fp32, f"{label}_fp32", bs)
-        print(f"  {label} SLFP8 / fp32: " + ", ".join(
-            f"b{bs} {tp[f'slfp8_b{bs}'] / tp[f'fp32_b{bs}']:.3f}"
-            for bs in batches), flush=True)
+    def throughputs(eng, fp32, label):
+        tp8 = images_per_s(eng, f"{label}_slfp8")
+        tp32 = images_per_s(fp32, f"{label}_fp32")
+        print(f"  {label} SLFP8 / fp32 b{eng.batch_size}: {tp8 / tp32:.3f}",
+              flush=True)
 
     @phase("path: InferenceEngine mobilenetv1 SLFP8 fused executor (K5)")
     def mobilenetv1_phase():
@@ -1972,17 +2157,18 @@ def main() -> int:
         torch_route = InferenceEngine("mobilenetv1", qbit=8, batch_size=B,
                                       seed=0, scales=sc,
                                       policy={"dw": "torch"})
-        torch_route.predict(requests[0][:1])
         kernels.reset_launches()
-        lt = torch_route.predict(requests[0])
+        lt = eager_predict(torch_route, requests[0])
         counts = kernels.launches()
         assert (counts["bn_epilogue"], counts["dw3x3"]) == (27, 0), counts
         ct = cos(lt, logits)
-        print(f"  policy dw=torch: {counts}, cos {ct:.6f}", flush=True)
+        print(f"  policy dw=torch (eager): {counts}, cos {ct:.6f}",
+              flush=True)
         assert ct > 0.995
         assert same_top1(lt, logits)
-        throughputs(eng, fp32, "mobilenetv1_fused", (64, 256))
-        images_per_s(torch_route, "mobilenetv1_fused_dw_torch_slfp8")
+        graph_checks(torch_route, "mobilenetv1_fused_dw_torch", requests,
+                     1000)
+        throughputs(eng, fp32, "mobilenetv1_fused")
         return eng, sc, logits, fp32, torch_route
 
     @phase("path: InferenceEngine mobilenet (CIFAR) SLFP8 fused executor")
@@ -1991,7 +2177,7 @@ def main() -> int:
             "mobilenet", "mobilenet_fused",
             {"act_quantize": 2, "bn_epilogue": 18, "dw3x3": 9},
             cifar_requests, 100)
-        throughputs(eng, fp32, "mobilenet_fused", (64, 256))
+        throughputs(eng, fp32, "mobilenet_fused")
 
     @phase("path: InferenceEngine mobilenetv1 SLFP8 module path (K4)")
     def mobilenetv1_module_phase(sc, fused_logits, fp32):
@@ -2010,7 +2196,7 @@ def main() -> int:
               f"{int(decisive.sum())} decisive rows", flush=True)
         assert c > 0.98
         assert (np.argmax(got, -1) == np.argmax(want, -1))[decisive].all()
-        throughputs(eng, fp32, "mobilenetv1_module_packed_k4", (B,))
+        throughputs(eng, fp32, "mobilenetv1_module_packed_k4")
 
     # ------------------------------------- the zoo and the serving surface
     def record_sites(call):
@@ -2243,7 +2429,7 @@ def main() -> int:
         sfused._post_loq = lambda y, c: sites.update(
             [tuple(y.shape)]) or orig(y, c)
         try:
-            eng.forward(x)
+            eager_forward(eng, x)
         finally:
             sfused._post_loq = orig
         launches = ms = 0.0
@@ -2280,7 +2466,7 @@ def main() -> int:
         assert eng.fused and eng.image_size == 32
         x = batch_of(32)
         want = {"act_quantize": 35, "bn_epilogue": 20}
-        sites("shufflenetv2_fused", lambda: eng.forward(x), want)
+        sites("shufflenetv2_fused", lambda: eager_forward(eng, x), want)
         logits = serve(eng, "shufflenetv2_fused", want, cifar_requests, 100)
         against_cpu("shufflenetv2", logits[0], cifar_requests[0], qbit=8,
                     scales=sc)
@@ -2291,7 +2477,7 @@ def main() -> int:
             "packed logits differ from float-frozen"
         print("  packed uint8 weights: logits bit-equal", flush=True)
         del packed
-        throughputs(eng, fp32, "shufflenetv2_fused", (64, 256))
+        throughputs(eng, fp32, "shufflenetv2_fused")
         post_chain(eng, x)
         return eng, sc, logits[0]
 
@@ -2303,7 +2489,7 @@ def main() -> int:
                               fused=False)
         x = batch_of(32)
         want = {"fused_quant_matmul": 37, "act_quantize": 20}
-        sites("shufflenetv2_module", lambda: eng.forward(x), want)
+        sites("shufflenetv2_module", lambda: eager_forward(eng, x), want)
         logits = serve(eng, "shufflenetv2_module", want, cifar_requests, 100)
         got, want = logits[0], fused_logits
         c = cos(got, want)
@@ -2315,23 +2501,23 @@ def main() -> int:
         assert c > 0.98
         assert (np.argmax(got, -1) == np.argmax(want, -1))[decisive].all()
         # the engine's default route (fused) against this one, in turns
-        for bs in (64, 256):
-            f1 = images_per_s(fused_eng, "shufflenetv2_fused_slfp8", bs)
-            m1 = images_per_s(eng, "shufflenetv2_module_slfp8_packed_k4", bs)
-            m2 = images_per_s(eng, "shufflenetv2_module_slfp8_packed_k4", bs)
-            f2 = images_per_s(fused_eng, "shufflenetv2_fused_slfp8", bs)
-            print(f"  b{bs}: fused / module path {(f1 + f2) / (m1 + m2):.3f}",
-                  flush=True)
+        f1, m1, m2, f2 = (images_per_s(e, label) for e, label in (
+            (fused_eng, "shufflenetv2_fused_slfp8"),
+            (eng, "shufflenetv2_module_slfp8_packed_k4"),
+            (eng, "shufflenetv2_module_slfp8_packed_k4"),
+            (fused_eng, "shufflenetv2_fused_slfp8")))
+        print(f"  b{B}: fused / module path {(f1 + f2) / (m1 + m2):.3f}",
+              flush=True)
 
     @phase("path: InferenceEngine resnet qbit 7 module path")
     def resnet_q7_phase():
         eng = InferenceEngine("resnet", qbit=7, batch_size=B, seed=0)
         assert not eng.fused
         x = batch_of(224)
-        sites("resnet_q7_module", lambda: eng.forward(x), {"act_quantize": 54})
+        sites("resnet_q7_module", lambda: eager_forward(eng, x),
+              {"act_quantize": 54})
         logits = serve(eng, "resnet_q7_module", {"act_quantize": 54})
         against_cpu("resnet", logits[0], requests[0], qbit=7)
-        images_per_s(eng, "resnet_q7_module")
 
     def reference_state_dict(model):
         """``model``'s weights as the reference's PyTorch model saves them:
@@ -2401,7 +2587,7 @@ def main() -> int:
                                  compute_dtype=None)
             print(f"  {net} fp32 module path: GPU vs CPU cos {c32:.6f}",
                   flush=True)
-            ips32 = images_per_s(fp32, f"{net}_fp32", B)
+            ips32 = sum(engine_graphs[f"{net}_fp32"]["graph_ips"]) / 2
             if want is None:
                 continue
             sc = derived_scales(fp32, reqs[0])
@@ -2409,7 +2595,7 @@ def main() -> int:
                                   scales=sc, pack_weights=True,
                                   use_pallas=None)
             x = batch_of(size)
-            sites(f"{net}_module", lambda: eng.forward(x), want)
+            sites(f"{net}_module", lambda: eager_forward(eng, x), want)
             logits = serve(eng, f"{net}_module", want, reqs, classes)
             c, cpu = against_cpu(net, logits[0], reqs[0], qbit=8, scales=sc,
                                  pack_weights=True, use_pallas=None)
@@ -2417,9 +2603,44 @@ def main() -> int:
             if net.startswith("resnet_"):
                 blocks_against_cpu(eng, cpu, reqs[0])
             del cpu
-            ips8 = images_per_s(eng, f"{net}_module_slfp8_packed_k4")
+            ips8 = sum(engine_graphs[f"{net}_module"]["graph_ips"]) / 2
             print(f"  {net}: SLFP8 / fp32 b{B} {ips8 / ips32:.3f}; "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # every other path the engine serves, through its graph against its
+    # eager forward (graph_checks): the ResNet-50 conv1 key, the CIFAR
+    # MobileNetV1's dw=torch route, the float-frozen module path of every
+    # net (cuDNN, K1 at the quantized layers' inputs) and the packed one
+    # (K4) of the nets no phase above serves packed; shipped scales
+    ZOO_NETS = ("squeezenet", "alexnet", "resnet", "resnet_stl",
+                "resnet_swish", "mobilenetv1", "mobilenet", "mobilenet_swish",
+                "shufflenetv2", "shufflenetv2_swish", "vgg16", "vgg16_gelu")
+
+    @phase("engine graphs: the other served paths through the engine's "
+           "graph against its eager forward")
+    def engine_graph_phase():
+        cases = [("resnet_fused_conv1_torch", "resnet",
+                  dict(policy={"conv1": "torch"})),
+                 ("mobilenet_fused_dw_torch", "mobilenet",
+                  dict(policy={"dw": "torch"}))]
+        cases += [(f"{net}_module_frozen", net,
+                   dict(fused=False) if net in FUSABLE else {})
+                  for net in ZOO_NETS]
+        cases += [(f"{net}_module", net, dict(
+            pack_weights=True, use_pallas=None,
+            **(dict(fused=False) if net in FUSABLE else {})))
+            for net in ("mobilenet", "mobilenet_swish",
+                        "shufflenetv2_swish")]
+        for path, net, kw in cases:
+            t0 = time.perf_counter()
+            eng = InferenceEngine(net, qbit=8, batch_size=B, seed=0, **kw)
+            assert eng.fused == ("policy" in kw), path
+            size = eng.image_size
+            graph_checks(eng, path, requests if size == 224
+                         else cifar_requests, 1000 if size == 224 else 100)
+            del eng
+            torch.cuda.empty_cache()
+            print(f"  {path}: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ------------------------------------------------------------- training
     from cnns_slfp_quantization_tpu_torch.cli import cifar100_train_eval
@@ -2727,59 +2948,7 @@ def main() -> int:
                 print(f"    {ms:8.3f} ms  x{n:6.1f}  {name[:110]}", flush=True)
 
     # ------------------------------------------------ CUDA graphs
-    from cnns_slfp_quantization_tpu_torch.utils.profiling import (
-        HAND_KERNELS,
-        GraphedForward,
-        _perturbed,
-        busy_ms,
-        scan_throughput,
-        scan_train_throughput,
-    )
-
     GRAPH_STEPS = 8
-
-    def bits(ts):
-        """The bytes of each tensor, for bit-for-bit comparisons."""
-        return [t.detach().reshape(-1).contiguous().view(torch.uint8)
-                for t in ts]
-
-    def same_bytes(a, b):
-        return len(a) == len(b) and all(torch.equal(x, y)
-                                        for x, y in zip(a, b))
-
-    BUSY_CALLS = 3
-
-    def busy_line(label, fn):
-        """Wall, kernel time by class and idle share per call of ``fn``
-        over BUSY_CALLS calls (``profiling.busy_ms``): (the idle share or
-        None, the hand kernels' launches the trace holds over the calls)."""
-        wall, busy, classes, launched = busy_ms(fn, calls=BUSY_CALLS)
-        launched = {k: n for k, n in launched.items() if n}
-        if busy is None:
-            print(f"  {label}: wall {wall:.3f} ms; the profiler recorded no "
-                  f"kernel (idle share not measured)", flush=True)
-            return None, launched
-        print(f"  {label}: wall {wall:.3f} ms, kernels {busy:.3f} ms, idle "
-              f"share {1 - busy / wall:.3f}; by class: " + ", ".join(
-                  f"{c} {ms:.3f}" for c, ms in sorted(classes.items()))
-              + f" ms; hand kernels in the trace over {BUSY_CALLS} calls "
-              f"{launched}", flush=True)
-        return 1 - busy / wall, launched
-
-    def replayed(path, label, graphed, per_call):
-        """The idle share of ``graphed``'s replays; the hand kernels their
-        trace holds must be ``per_call`` (counted at the capture) times the
-        replays, and that count is the path's launches."""
-        want = {k: n * BUSY_CALLS for k, n in per_call.items()
-                if n and k in HAND_KERNELS}
-        idle, launched = busy_line(label, graphed)
-        assert launched == want, (label, launched, want)
-        for key, name in (("k1", "act_quantize"), ("k2", "qmm_fused"),
-                          ("k3", "bn_epilogue"), ("k4", "fused_quant_matmul"),
-                          ("k5", "dw3x3"), ("k6", "bottleneck_chain")):
-            if name in launched:
-                rows[key].counted(path, launched[name], BUSY_CALLS)
-        return idle
 
     DROP_STEPS, DB = 4, 32
 
@@ -2826,6 +2995,11 @@ def main() -> int:
         step(state, x0, y0, gen)
         torch.cuda.synchronize()
         per_step = {k: n for k, n in kernels.launches().items() if n}
+        # the step's K1 sites, held against the plain version and timed:
+        # the dropout graph's row gets their time, plain time and bound
+        state, step, gen, _ = fresh()
+        sites("qat_graph_dropout_squeezenet",
+              lambda: step(state, x0, y0, gen), per_step)
         got = {}
         for mode in ("eager", "graph"):
             state, step, gen, seen = fresh()
@@ -2870,8 +3044,8 @@ def main() -> int:
               flush=True)
 
     @phase("CUDA graphs: the QAT step captured and replayed against eager "
-           "steps (routes A, B and float32, batch 256), fused ResNet-50's "
-           "forward (batch 64)")
+           "steps (routes A, B and float32, batch 256), the CIFAR "
+           "MobileNetV1 engine's graph (batch 256)")
     def graph_phase(sc):
         x0, y0 = train_data(TB)
         xs = [_perturbed(x0, i) for i in range(GRAPH_STEPS)]
@@ -2946,60 +3120,22 @@ def main() -> int:
 
         dropout_graph()
 
-        # fused ResNet-50's forward at batch 64: the graph's logits are
-        # the eager forward's, and its images/s in turns
-        eng = InferenceEngine("resnet", qbit=8, batch_size=B, image_size=224,
-                              seed=0)
-        x = torch.from_numpy(requests[0]).to(dev)
-        gf = GraphedForward(eng.forward, x)
-        per_fwd = {k: n for k, n in gf.launches.items() if n}
-        assert per_fwd == RN_WANT, per_fwd
-        assert same_bits(gf(x), eng.forward(x)), "graph logits differ"
-        ips = {"eager": [], "graph": []}
-        for mode in ("eager", "graph", "graph", "eager") * 2:
-            ips[mode].append(scan_throughput(eng.forward, x, steps=16,
-                                             graph=mode == "graph"))
-        mean = {k: sum(v) / len(v) for k, v in ips.items()}
-        idle = {"eager": busy_line("resnet fused eager forward",
-                                   lambda: eng.forward(x))[0],
-                "graph": replayed("resnet_fused_graph",
-                                  "resnet fused graph replay",
-                                  lambda: gf(x), per_fwd)}
-        print(f"  fused ResNet-50 (default policy), batch {B}: graph logits "
-              f"bit-equal to eager; launches a forward {per_fwd}; "
-              f"scan_throughput images/s in turns: eager "
-              f"{[round(v, 1) for v in ips['eager']]}, graph "
-              f"{[round(v, 1) for v in ips['graph']]}; means "
-              f"{mean['eager']:.1f} / {mean['graph']:.1f} = graph "
-              f"{mean['graph'] / mean['eager']:.3f}x; idle share eager "
-              f"{idle['eager']}, graph {idle['graph']} ({card})", flush=True)
-
-        # fused CIFAR MobileNetV1 (K1, K3, K5) at batch 256, unit scales
-        # (a random-init model's activations stay off the pseudo-zero)
+        # fused CIFAR MobileNetV1 (K1, K3, K5) at batch 256 through the
+        # engine's own graph, unit scales (a random-init model's
+        # activations stay off the pseudo-zero); fused ResNet-50's forward
+        # graph is the engine's on every served path (serve())
         mob = InferenceEngine("mobilenet", qbit=8, batch_size=TB, seed=0,
                               scales=calib.ScaleSet.ones(28))
-        xm = torch.from_numpy(np.random.default_rng(3).standard_normal(
-            (TB, 32, 32, 3)).astype(np.float32)).to(dev)
-        gm = GraphedForward(mob.forward, xm)
-        per_fwd = {k: n for k, n in gm.launches.items() if n}
+        xm = np.random.default_rng(3).standard_normal(
+            (TB, 32, 32, 3)).astype(np.float32)
+        per_fwd = graph_checks(mob, "mobilenet_fused_graph", [xm], 100)
         assert per_fwd == {"act_quantize": 2, "bn_epilogue": 18,
                            "dw3x3": 9}, per_fwd
-        got, want = gm(xm), mob.forward(xm)
-        assert same_bits(got, want) and bool(
-            (want.float().std(0) > 0).any()), "graph logits differ"
-        ips = {mode: scan_throughput(mob.forward, xm, steps=16,
-                                     graph=mode == "graph")
-               for mode in ("eager", "graph")}
-        idle = {"eager": busy_line("mobilenet fused eager forward",
-                                   lambda: mob.forward(xm))[0],
-                "graph": replayed("mobilenet_fused_graph",
-                                  "mobilenet fused graph replay",
-                                  lambda: gm(xm), per_fwd)}
-        print(f"  fused CIFAR MobileNetV1, batch {TB}: graph logits "
-              f"bit-equal to eager; launches a forward {per_fwd}; "
-              f"scan_throughput images/s eager {ips['eager']:.1f}, graph "
-              f"{ips['graph']:.1f}; idle share eager {idle['eager']}, graph "
-              f"{idle['graph']} ({card})", flush=True)
+        assert bool((torch.from_numpy(mob.predict(xm)).std(0) > 0).any())
+        for key, name in (("k1", "act_quantize"), ("k3", "bn_epilogue"),
+                          ("k5", "dw3x3")):
+            rows[key].counted("mobilenet_fused_graph",
+                              per_fwd[name] * BUSY_CALLS, BUSY_CALLS)
 
     # ------------------------------------------------ the PTQ workflow
     from cnns_slfp_quantization_tpu_torch.calib import calibrate as tcal
@@ -3143,14 +3279,17 @@ def main() -> int:
                                   image_size=224, seed=0, scales=str(path),
                                   fused=False)
         assert eng.fused and not mod.fused
-        sites("resnet_calibrated", lambda: eng.forward(batch_of(224)),
+        sites("resnet_calibrated",
+              lambda: eager_forward(eng, batch_of(224)),
               {"act_quantize": 5, "bn_epilogue": 14})
-        k2_sites("resnet_calibrated", lambda: eng.forward(batch_of(224)))
+        k2_sites("resnet_calibrated",
+                 lambda: eager_forward(eng, batch_of(224)))
         lf = serve(eng, "resnet_calibrated", {
             "act_quantize": 5, "qmm_fused": 18, "bn_epilogue": 14,
             "bottleneck_chain": 7})
         sites("resnet_calibrated_module",
-              lambda: mod.forward(batch_of(224)), {"act_quantize": 54})
+              lambda: eager_forward(mod, batch_of(224)),
+              {"act_quantize": 54})
         lm = serve(mod, "resnet_calibrated_module", {"act_quantize": 54})
         worst = min(cos(a, b) for a, b in zip(lf, lm))
         print(f"  fused executor against the module path on the calibrated "
@@ -3519,12 +3658,15 @@ def main() -> int:
             want = plain.predict(x)
             eng = InferenceEngine("resnet", qbit=8, batch_size=B,
                                   image_size=224, seed=0, mesh=mesh)
-            eng.predict(x[:1])
+            assert eng.graphed
             got, counts = _counted_run(lambda: eng.predict(x))
             assert np.array_equal(got.view(np.uint16), want.view(np.uint16))
-            mesh_counts("mesh1x1_nccl_resnet_fused", counts, RN_WANT)
-            print(f"  fused ResNet-50, batch {B}: logits bit-equal to the "
-                  f"engine without mesh=; launches {counts}", flush=True)
+            # the run captured the rank's graph: the capture's two
+            # forwards' launches; the replay launched without Python
+            mesh_counts("mesh1x1_nccl_resnet_fused", counts, RN_WANT, 2)
+            print(f"  fused ResNet-50, batch {B}: graph logits bit-equal to "
+                  f"the engine without mesh= (graphed too); launches at "
+                  f"the capture {counts}", flush=True)
             xt, yt = train_data(TB)
             loss, params = step_from(
                 lambda: train_model(8, sc, use_pallas=True), xt, yt)
@@ -3590,19 +3732,26 @@ def main() -> int:
                 want[i * 32:(i + 1) * 32].view(np.uint16)), r
             c = cos(tp["got"], want)
             assert c > 0.999 and same_top1(tp["got"], want), (r, c)
+            # a data axis serves the rank's rows through its graph, whose
+            # capture the counted run holds (two forwards' launches); a
+            # model axis gathers every forward, eager by the engine's rule
+            assert dp["graphed"] and not tp["graphed"], (dp, tp)
             mesh_counts(f"mesh2x1_resnet_fused_rank{r}", dp["counts"],
-                        RN_WANT)
+                        RN_WANT, 2)
             mesh_counts(f"mesh1x2_resnet_fused_rank{r}", tp["counts"],
                         RN_WANT)
-            print(f"  rank {r}: fused ResNet-50, batch {B}: 2x1 rows "
+            print(f"  rank {r}: fused ResNet-50, batch {B}: 2x1 (graph) rows "
                   f"{i * 32}-{i * 32 + 31} bit-equal to an unsharded engine "
-                  f"at batch 32 (launches a forward {dp['counts']}); 1x2 cos "
+                  f"at batch 32 (graph; launches at the capture "
+                  f"{dp['counts']}); 1x2 (graphed {tp['graphed']}: eager by "
+                  f"the model-axis rule) cos "
                   f"{c:.6f}, same top-1 (launches {tp['counts']}); "
                   f"images/s 2x1 {dp['ips']:.1f}, 1x2 {tp['ips']:.1f} "
                   f"(2 ranks sharing one {card})", flush=True)
             sq = rr["_mesh_module"]
             c = cos(sq["got"], sq["want"])
             assert c > 0.999 and same_top1(sq["got"], sq["want"]), (r, c)
+            assert not sq["graphed"], r
             mesh_counts(f"mesh1x2_squeezenet_module_rank{r}", sq["counts"],
                         {"fused_quant_matmul": 17, "act_quantize": 9})
             print(f"  rank {r}: SqueezeNet module path, packed, 1x2, batch "
@@ -3612,8 +3761,9 @@ def main() -> int:
             i = mn["i"]
             assert np.array_equal(mn["got"][i * 32:(i + 1) * 32].view(
                 np.uint16), mn["want"][i * 32:(i + 1) * 32].view(np.uint16))
+            assert mn["graphed"], r
             mesh_counts(f"mesh2x1_mobilenet_fused_rank{r}", mn["counts"],
-                        {"act_quantize": 2, "bn_epilogue": 18, "dw3x3": 9})
+                        {"act_quantize": 2, "bn_epilogue": 18, "dw3x3": 9}, 2)
             for net, want in (("mobilenetv1", {"act_quantize": 1,
                                                "bn_epilogue": 18,
                                                "dw3x3": 9}),
@@ -3634,6 +3784,7 @@ def main() -> int:
                 assert np.array_equal(
                     tp["got"].view(np.uint32),
                     res[0]["_mesh_fused_tp"][net]["got"].view(np.uint32))
+                assert not tp["graphed"], (r, net)
                 mesh_counts(f"mesh1x2_{net}_fused_rank{r}", tp["counts"],
                             want)
                 print(f"  rank {r}: fused {net}, 1x2, batch {B}: cos "
@@ -3746,8 +3897,8 @@ def main() -> int:
         (``profiling.print_forward_profile``)."""
         x = torch.from_numpy(np.random.default_rng(1).standard_normal(
             (B, eng.image_size, eng.image_size, 3)).astype(np.float32)).to(dev)
-        print(f"  profile {label}:", flush=True)
-        print_forward_profile(lambda: eng.forward(x), B)
+        print(f"  profile {label} (eager forward):", flush=True)
+        print_forward_profile(lambda: eager_forward(eng, x), B)
 
     k1_phase()
     k2_phase()
@@ -3780,6 +3931,7 @@ def main() -> int:
                         "to compare")
     resnet_q7_phase()
     zoo_phase()
+    engine_graph_phase()
     sc_train = train_b_phase()
     train_learn_phase()
     train_cli_phase()
@@ -3818,6 +3970,22 @@ def main() -> int:
         except Exception:  # a measurement; the checks above decide success
             print(f"  profiler failed (not measured):\n"
                   f"{traceback.format_exc()}", flush=True)
+    print(f"engine graphs, {card}: path, batch, throughput() images/s "
+          f"graph / eager (mean of 2 turns each), ratio, idle share eager "
+          f"-> graph, kernel ms a forward eager -> graph, by class (graph)",
+          flush=True)
+    for path, g in engine_graphs.items():
+        gi, ei = (sum(g[k]) / len(g[k]) for k in ("graph_ips", "eager_ips"))
+        idle = {m: "n/m" if v is None else f"{v:.3f}"
+                for m, v in g["idle"].items()}
+        kms = {m: "n/m" if v is None else f"{v:.3f}"
+               for m, v in g["kernel_ms"].items()}
+        print(f"  {path}, b{g['batch']}, iters {g['iters']}: {gi:.1f} / "
+              f"{ei:.1f} = "
+              f"{g['ratio']:.3f}; idle {idle['eager']} -> {idle['graph']}; "
+              f"kernels {kms['eager']} -> {kms['graph']} ms; " + ", ".join(
+                  f"{c} {ms:.3f}" for c, ms in sorted(
+                      g["classes"]["graph"].items())), flush=True)
     for r in rows.values():
         for path, d in r.paths.items():
             if d["launches"] == 0:

@@ -8,9 +8,10 @@ images/s (``per_device_batch`` rows per data rank): **inference** through
 **QAT training** (forward, backward, DSGD, the gradient all-reduce of
 ``parallel.steps``).  The ranks beyond n wait.  A rate is the global batch
 over the slowest rank's time.  Each row's ``timing`` says how its rate
-was timed: ``"graph"``, the forward as one CUDA graph replayed per step
-(``utils/profiling.py::scan_throughput``), where the mesh has no model
-axis and the ranks run on the card; ``"eager"`` otherwise, and always for
+was timed: ``"graph"``, replays of the engine's own CUDA graph
+(``InferenceEngine.graphed``, timed by ``utils/profiling.py::
+scan_throughput``), where the mesh has no model axis and the ranks run on
+the card; ``"eager"`` otherwise, and always for
 training, whose step reduces over the mesh's groups (gloo or NCCL, which a
 graph does not capture).  Run it in every rank:
 
@@ -37,7 +38,6 @@ from cnns_slfp_quantization_tpu_torch.parallel import (
     make_mesh,
     multihost,
 )
-from cnns_slfp_quantization_tpu_torch.parallel import mesh as mesh_lib
 from cnns_slfp_quantization_tpu_torch.parallel import steps
 from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
 from cnns_slfp_quantization_tpu_torch.train import loop, optimizers
@@ -55,10 +55,11 @@ def _infer_ips(net, qbit, mesh, x, fused, device):
                           image_size=x.shape[1], fused=fused, device=device,
                           mesh=mesh)
     xs = steps.place_rows(mesh, x)
-    graph = xs.is_cuda and mesh_lib.axis_size(mesh, "model") == 1
-    ips = scan_throughput(eng.forward, xs, steps=INFER_STEPS, graph=graph)
+    # the engine's own dispatch: replays of its graph where it serves
+    # through one, eager calls on the CPU and over a model axis
+    ips = scan_throughput(eng._dispatch, xs, steps=INFER_STEPS, graph=False)
     return (comm.global_rate(xs.shape[0], ips, x.shape[0], mesh),
-            "graph" if graph else "eager")
+            "graph" if eng.graphed else "eager")
 
 
 def _train_ips(net, qbit, mesh, x, device, optimizer="DSGD"):

@@ -26,6 +26,19 @@ as JAX's ``load_pth`` matches it.  The engine runs on ``device="cuda"``
 unless the caller asks for ``device="cpu"``; without a card the default
 raises.
 
+On the card the engine serves through one CUDA graph, as JAX's serves
+through one ``jax.jit`` call: the first :meth:`InferenceEngine.forward`
+(or ``predict``) captures the whole forward on the engine's fixed input,
+``[batch_size // data, image_size, image_size, 3]`` float32, under the
+flags the eager forward enters (``utils/profiling.py::GraphedForward``),
+and every later call copies its input in and replays the graph; ``predict``
+pads each chunk to that batch, so its last chunk replays the same graph.
+``forward`` refuses another shape, and a capture that fails raises.  The
+engine stays eager on the CPU (``device="cpu"``) and by one rule on the
+card: over a model axis > 1 the forward gathers shards through
+``torch.distributed`` every call, which a CUDA graph cannot hold.
+``graphed`` says which of the two an engine does.
+
 ``mesh=`` (``parallel.make_mesh``) serves over a ``("data", "model")``
 mesh, every rank building the engine with the same arguments:
 ``batch_size`` is the global batch and each rank runs its ``batch_size //
@@ -176,14 +189,19 @@ class InferenceEngine:
             self.executor = executor.prepare(model, device=self.device)
             if model_axis > 1:
                 self.executor = executor.shard_weights(self.executor, mesh)
-            self._forward = lambda x: executor.fused_apply(
+            self._eager = lambda x: executor.fused_apply(
                 self.executor, x, policy=self.policy)
         else:
             self.model = model.to(self.device)
             if model_axis > 1:
                 mesh_lib.shard_module(self.model, mesh)
-            self._forward = (self._quantized_module if qbit in (7, 8)
-                             else self.model)
+            self._eager = (self._quantized_module if qbit in (7, 8)
+                           else self.model)
+        local = batch_size // (1 if mesh is None
+                               else mesh_lib.axis_size(mesh, "data"))
+        self.input_shape = (local, self.image_size, self.image_size, 3)
+        self.graphed = self.device.type == "cuda" and model_axis == 1
+        self._graph = None        # captured at the first call (graphed)
 
     def _quantized_module(self, x: torch.Tensor) -> torch.Tensor:
         """The qbit 7 / 8 module path (K4 where ``use_pallas`` routes an
@@ -193,11 +211,35 @@ class InferenceEngine:
         with backend_flags():
             return self.model(x)
 
+    def _dispatch(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward as the engine serves it: the graph's replay, whose
+        output tensor the next replay overwrites, where ``graphed`` (the
+        capture at the first call); else the eager forward."""
+        if not self.graphed:
+            with torch.inference_mode():
+                return self._eager(x)
+        if tuple(x.shape) != self.input_shape or x.dtype != torch.float32:
+            raise ValueError(
+                f"the engine's graph takes float32 {self.input_shape} (its "
+                f"fixed batch); got {x.dtype} {tuple(x.shape)}: predict() "
+                f"pads any batch to it")
+        if self._graph is None:
+            from cnns_slfp_quantization_tpu_torch.utils.profiling import (
+                GraphedForward)
+
+            self._graph = GraphedForward(self._eager, x)
+        return self._graph(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Logits for an NHWC float32 batch already on the engine's device
-        (under a mesh: the rank's rows)."""
-        with torch.inference_mode():
-            return self._forward(x)
+        (under a mesh: the rank's rows), at the engine's fixed input shape
+        where it serves through its graph; a tensor of its own, which no
+        later call overwrites."""
+        y = self._dispatch(x)
+        if self.graphed:
+            with torch.inference_mode():
+                return y.clone()
+        return y
 
     def predict(self, images) -> np.ndarray:
         """float32 logits for NHWC float32 images; any leading batch size,
@@ -213,10 +255,10 @@ class InferenceEngine:
                     [chunk, np.zeros((pad,) + chunk.shape[1:], np.float32)])
             xb = torch.from_numpy(chunk).to(self.device)
             if self.mesh is None:
-                y = self.forward(xb)
+                y = self._dispatch(xb)
             else:
-                y = comm.gather_rows(self.forward(place_rows(self.mesh, xb)),
-                                     self.mesh)
+                y = comm.gather_rows(
+                    self._dispatch(place_rows(self.mesh, xb)), self.mesh)
             out.append(y[:self.batch_size - pad].float().cpu().numpy())
         return np.concatenate(out)[:n]
 
@@ -225,17 +267,21 @@ class InferenceEngine:
         return np.argmax(self.predict(images), axis=-1)
 
     def throughput(self, iters: int = 16) -> float:
-        """Images per second at the fixed batch size, timed on the card;
-        under a mesh each rank times its share and every rank returns the
+        """Images per second at the fixed batch size, as JAX's engine times
+        its scan (``utils/profiling.py::scan_throughput``): ``iters``
+        forwards on zeros perturbed per forward, the fastest of three timed
+        runs after one untimed run.  On the card the forwards are replays
+        of the engine's own graph (or, over a model axis, eager calls),
+        timed by CUDA events; on the CPU eager calls on the host's clock.
+        Under a mesh each rank times its share and every rank returns the
         global batch over the slowest rank's time."""
-        from cnns_slfp_quantization_tpu_torch.utils.profiling import throughput
+        from cnns_slfp_quantization_tpu_torch.utils.profiling import (
+            scan_throughput)
 
-        local = self.batch_size
-        if self.mesh is not None:
-            local //= mesh_lib.axis_size(self.mesh, "data")
-        x = torch.zeros((local, self.image_size, self.image_size, 3),
-                        dtype=torch.float32, device=self.device)
-        ips = throughput(lambda: self.forward(x), local, iters=iters)
+        x = torch.zeros(self.input_shape, dtype=torch.float32,
+                        device=self.device)
+        ips = scan_throughput(self._dispatch, x, steps=iters, graph=False)
         if self.mesh is None:
             return ips
-        return comm.global_rate(local, ips, self.batch_size, self.mesh)
+        return comm.global_rate(self.input_shape[0], ips, self.batch_size,
+                                self.mesh)

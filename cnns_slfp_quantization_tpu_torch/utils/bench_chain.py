@@ -190,6 +190,7 @@ def serve_turns(pairs: int) -> None:
     from cnns_slfp_quantization_tpu_torch.serve import InferenceEngine
 
     dev = torch.device("cuda")
+    print(turns.FORWARD_NOTE, flush=True)
     for batch in (64, 256):
         x = torch.randn(batch, 224, 224, 3, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))

@@ -194,6 +194,7 @@ def main() -> int:
         print(f"per forward {path} {name}: {turns.joined(tot, '.4f')} ms",
               flush=True)
     if a.pairs:
+        print(turns.FORWARD_NOTE, flush=True)
         served = turns.worker(__file__, turns.ROOT, "--pairs", str(a.pairs))
         for key, runs in served.items():
             print(f"fused {key} in turns: " + turns.compared(

@@ -328,16 +328,16 @@ def serve_ips(dev):
 
     out = {}
     for net in ("resnet", "mobilenetv1"):
-        eng = InferenceEngine(net, qbit=8, batch_size=B, image_size=224,
-                              seed=0)
         for batch in (64, 256):
+            eng = InferenceEngine(net, qbit=8, batch_size=batch,
+                                  image_size=224, seed=0)
             x = torch.randn(batch, 224, 224, 3, device=dev,
                             generator=torch.Generator(device=dev).manual_seed(
                                 0))
             profiling.throughput(lambda: eng.forward(x), batch)
             out[f"{net}_b{batch}"] = profiling.throughput(
                 lambda: eng.forward(x), batch)
-        del eng
+            del eng
     return out
 
 
@@ -426,6 +426,7 @@ def main() -> int:
             + f"; f32 / bf16 {sum(st['f32']) / sum(st['bf16']):.3f}",
             flush=True)
     if a.serve:
+        print(turns.FORWARD_NOTE, flush=True)
         served = turns.across_checkouts(__file__, a.against, "--mode",
                                         "serve")
         for key in served["this"][0]:

@@ -378,6 +378,7 @@ def main() -> int:
         print(f"per forward {key} {name}: "
               f"{' / '.join(f'{ms:.4f}' for ms, _ in tot)} ms, kernels "
               f"{' / '.join(f'{kms:.4f}' for _, kms in tot)} ms", flush=True)
+    print(turns.FORWARD_NOTE, flush=True)
     for name, rs in runs.items():
         print(f"fused ResNet-50 b{B} {name}: "
               f"{turns.joined(r['serve'] for r in rs)} images/s", flush=True)

@@ -1,6 +1,11 @@
 """Device timing with CUDA events and torch.profiler (counterpart of the
 JAX ``utils/profiling.py``).
 
+- :class:`StepTimer`: wall-clock seconds per item with percentile
+  summaries, JAX's keys.
+- :func:`trace`: a context manager around ``torch.profiler`` that writes a
+  Chrome / TensorBoard trace for offline analysis.
+
 Every number here is measured on the card: a function given CPU work, or
 run where there is no card, raises instead of timing the host.  The two
 ``scan_*`` functions (``parallel/scaling_bench.py``) are the exception:
@@ -14,9 +19,58 @@ not set the pace, timed by CUDA events.
 
 from __future__ import annotations
 
+import contextlib
 import re
 import statistics
-from typing import Callable
+import time
+from typing import Callable, Optional
+
+import numpy as np
+
+
+class StepTimer:
+    """Wall-clock samples, in seconds per item, of the steps between
+    :meth:`start` and :meth:`stop` (JAX's ``StepTimer``)."""
+
+    def __init__(self):
+        self.samples: list[float] = []
+        self._t0: Optional[float] = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self, items: int = 1):
+        dt = time.perf_counter() - self._t0
+        self.samples.append(dt / max(items, 1))
+        return dt
+
+    def summary(self) -> dict:
+        if not self.samples:
+            return {}
+        a = np.asarray(self.samples)
+        return {
+            "mean_s": float(a.mean()),
+            "p50_s": float(np.percentile(a, 50)),
+            "p95_s": float(np.percentile(a, 95)),
+            "best_s": float(a.min()),
+            "items_per_sec": float(1.0 / a.min()),
+        }
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """torch.profiler around the enclosed block, written as a Chrome /
+    TensorBoard trace (``*.pt.trace.json``) under ``log_dir`` when the
+    block ends.  Activities: the CPU, and CUDA where a card is present."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield log_dir
 
 
 def _require_cuda():
@@ -97,10 +151,11 @@ def _best_of_3(run, device) -> float:
 
 
 def _perturbed(x0, i: int):
-    """JAX's per-step input ``x0 * (1 + i * 1e-6)`` in x0's type."""
-    import numpy as np
-
-    return (x0.float() * np.float32(1.0 + i * 1e-6)).to(x0.dtype)
+    """JAX's per-step input ``x0 * (1 + i * 1e-6)`` in x0's type: the
+    factor ``1 + f32(i) * f32(1e-6)`` rounded once to float32, as XLA
+    computes it (one fused multiply-add; the float64 sum is exact)."""
+    factor = np.float32(1.0 + i * float(np.float32(1e-6)))
+    return (x0.float() * factor).to(x0.dtype)
 
 
 def capture(fn: Callable[[], object], device, before=None, generator=None):
@@ -175,8 +230,9 @@ def scan_throughput(forward: Callable, x0, *, steps: int = 8,
     perturbed per call as JAX's ``scan_throughput`` perturbs it (so no call
     repeats another's input); the fastest of three timed runs after one
     untimed run.  On the card the forward is one CUDA graph replayed per
-    call (:class:`GraphedForward`; ``graph=False``: eager calls, as on the
-    CPU)."""
+    call (:class:`GraphedForward`); ``graph=False`` calls ``forward`` as it
+    is: eager calls, as on the CPU, or the replays of a graph the caller
+    captured (``InferenceEngine.throughput``)."""
     import torch
 
     xs = [_perturbed(x0, i) for i in range(steps)]
@@ -386,16 +442,6 @@ def print_forward_profile(fn: Callable[[], object], batch: int,
         print(f"    {ms:8.3f} ms  x{n:5.1f}  {key[:100]}", flush=True)
 
 
-# kernel class -> substrings of the kernel names it takes, tried in order
-KERNEL_CLASSES = (
-    ("K1", ("quantize_kernel", "f32form_kernel")),
-    ("K4", ("FusedEpi",)),
-    ("cuDNN conv", ("cudnn", "conv", "implicit", "dgrad", "wgrad", "fprop",
-                    "Winograd")),
-    ("cuBLAS", ("gemm", "cutlass", "cublas", "Kernel2", "splitKreduce")),
-)
-
-
 # kernel wrapper -> the name of the device kernel one call launches, as the
 # trace spells it (split-K's second pass, ``splitk_reduce``, not counted)
 HAND_KERNELS = {
@@ -408,9 +454,36 @@ HAND_KERNELS = {
     "bottleneck_chain": r"\bchain_kernel<",
 }
 
+# kernel class of each hand kernel's launches, by wrapper; split-K's second
+# pass goes with the GEMM whose epilogue type it carries
+HAND_CLASSES = {
+    "act_quantize": "K1", "slfp34_act_quantize": "K1", "qmm_fused": "K2",
+    "bn_epilogue": "K3", "fused_quant_matmul": "K4", "dw3x3": "K5",
+    "bottleneck_chain": "K6",
+}
+SPLITK_CLASSES = ((r"\bsplitk_reduce<.*\bQmmEpi\b", "K2"),
+                  (r"\bsplitk_reduce<.*\bFusedEpi\b", "K4"))
+
+# library class -> substrings of the kernel names it takes, tried in order
+# after the hand kernels
+LIBRARY_CLASSES = (
+    ("cuDNN conv", ("cudnn", "conv", "implicit", "dgrad", "wgrad", "fprop",
+                    "Winograd")),
+    ("cuBLAS", ("gemm", "cutlass", "cublas", "Kernel2", "splitKreduce")),
+)
+
 
 def kernel_class(name: str) -> str:
-    for label, keys in KERNEL_CLASSES:
+    """A device kernel's class by its trace name: its hand kernel (K1-K6,
+    :data:`HAND_KERNELS`, split-K's second pass with its GEMM) before any
+    library substring, else cuDNN, cuBLAS or elementwise."""
+    for wrapper, pattern in HAND_KERNELS.items():
+        if re.search(pattern, name):
+            return HAND_CLASSES[wrapper]
+    for pattern, label in SPLITK_CLASSES:
+        if re.search(pattern, name):
+            return label
+    for label, keys in LIBRARY_CLASSES:
         if any(k in name for k in keys):
             return label
     return "elementwise"

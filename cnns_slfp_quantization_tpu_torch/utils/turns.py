@@ -12,6 +12,10 @@ import sys
 from typing import Optional
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]    # this checkout
+# what the tools' images/s time: ``InferenceEngine.forward`` on the card
+FORWARD_NOTE = ("images/s of InferenceEngine.forward: replays of the "
+                "engine's CUDA graph in this checkout (eager calls in a "
+                "checkout older than its graph dispatch)")
 
 
 def card() -> Optional[str]:

@@ -210,3 +210,70 @@ def test_hand_kernels_are_counted_by_their_trace_names(name, want):
 
     got = [w for w, p in profiling.HAND_KERNELS.items() if re.search(p, name)]
     assert got == ([want] if want else [])
+
+
+# a trace name of each hand kernel and of split-K's second pass -> its class
+_HAND_NAMES = [
+    (f"void {_ANON}quantize_kernel<8, false, false, true, true>(void "
+     f"const*, void*, long long, long long, float)", "K1"),
+    (f"void {_ANON}f32form_kernel<true>(void const*, void*, long long)",
+     "K1"),
+    (f"void gemm::gemm_kernel<2, 128, false, {_ANON}QmmEpi>(CUtensorMap_st, "
+     f"CUtensorMap_st, gemm::Params, {_ANON}QmmEpi)", "K2"),
+    (f"void gemm::splitk_reduce<{_ANON}QmmEpi>(float const*, int, long long, "
+     f"int, {_ANON}QmmEpi)", "K2"),
+    (f"void {_ANON}epilogue_slab<false, true, true, 0, true>({_ANON}Args)",
+     "K3"),
+    (f"{_ANON}epilogue_any({_ANON}Args, bool, bool)", "K3"),
+    (f"void gemm::gemm_kernel<1, 64, true, {_ANON}FusedEpi>(CUtensorMap_st, "
+     f"CUtensorMap_st, gemm::Params, {_ANON}FusedEpi)", "K4"),
+    (f"void gemm::splitk_reduce<{_ANON}FusedEpi>(float const*, int, long "
+     f"long, int, {_ANON}FusedEpi)", "K4"),
+    (f"void {_ANON}dw3x3_kernel<true, false, 1>({_ANON}Args)", "K5"),
+    (f"void {_ANON}chain_kernel<true>(CUtensorMap_st, CUtensorMap_st)",
+     "K6"),
+]
+
+
+@pytest.mark.parametrize("name, want", _HAND_NAMES)
+def test_kernel_class_names_each_hand_kernel(name, want):
+    """A hand kernel's launches go to its own class, before any library
+    substring (``gemm``, ``conv``), never to cuBLAS, cuDNN or the
+    elementwise kernels; split-K's second pass goes with the GEMM whose
+    epilogue type it carries."""
+    assert profiling.kernel_class(name) == want
+
+
+def test_kernel_class_covers_every_hand_kernel():
+    """Every wrapper of ``HAND_KERNELS`` has a class and a sample name
+    above that its pattern takes."""
+    import re
+
+    assert set(profiling.HAND_CLASSES) == set(profiling.HAND_KERNELS)
+    for wrapper, pattern in profiling.HAND_KERNELS.items():
+        assert any(re.search(pattern, n) and c == profiling.HAND_CLASSES[
+            wrapper] for n, c in _HAND_NAMES), wrapper
+
+
+@pytest.mark.parametrize("name, want", [
+    ("void cutlass::Kernel2<cutlass_80_tensorop_s1688gemm_64x64_16x6_tn_"
+     "align4>(cutlass_80_tensorop_s1688gemm_64x64_16x6_tn_align4::Params)",
+     "cuBLAS"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroup"
+     "size1x1x1_execute_segment_k_off_kernel__5x_cublas", "cuBLAS"),
+    ("void cublasLt::splitKreduce_kernel<32, 16, int, float, float, float, "
+     "float, false, false, false>(cublasLt::cublasSplitKParams<float>, "
+     "float const*, float const*, float*)", "cuBLAS"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_"
+     "tilesize128x128x64_warpgroupsize1x1x1_g1_execute_segment_k_off_kernel"
+     "__5x_cudnn", "cuDNN conv"),
+    ("void cudnn::ops::nchwToNhwcKernel<float, float, float, false, true, "
+     "(cudnnKernelDataType_t)2>(cudnn::ops::nchw2nhwc_params_t<float>, "
+     "float const*, float*)", "cuDNN conv"),
+    (_CAST, "elementwise"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "FillFunctor<float>, std::array<char*, 1ul> >(int, at::native::"
+     "FillFunctor<float>, std::array<char*, 1ul>)", "elementwise"),
+])
+def test_kernel_class_keeps_the_library_classes(name, want):
+    assert profiling.kernel_class(name) == want
