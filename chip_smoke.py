@@ -201,7 +201,23 @@
      site removed (``_diag_quant_sites``) and none, every configuration's
      logits finite, the production one bit-equal to the engine's forward,
      its launches and graph images/s printed; K2 at the 18 calls of the
-     ceiling (raw f32 and bf16 outputs) against its plain version.
+     ceiling (raw f32 and bf16 outputs) against its plain version;
+   - the measuring tools, in-process at a small size, the phase's seconds
+     printed: ``utils/bench_roofline.py`` at batch 64 under the default
+     policy (every row of the forward, K1 / K2 / K3 / K6 each launched by
+     its wrapper: no row above its bound, the rows' launches per class
+     those of one eager forward of the executor, counted with the counts
+     reset just before it, which are the launches recorded; the aggregate
+     beside the engine's per-batch time), ``bench_train_sites.py`` on
+     CIFAR mobilenet at batch 256 (each variant's graph replay bit-equal
+     to an eager step; the launches recorded are the prod variant's one
+     eager step's), ``bench_packed_fused.py`` (the packed executor holds
+     fewer weight bytes and gives the float one's logits bit for bit),
+     ``bench_blockin.py`` (``pallas_dual`` bit-identical to
+     ``consumer``), ``bench_shufflenet_fused.py``'s gate on the scales
+     derived for its random weights, ``calibrate_act_variants.py`` on the
+     STL variant for 2 steps into a temporary directory (the shipped
+     JSON's keys and lengths) and one ``tune_task_signal.py`` probe.
    K1 and K3 at every site of these paths are held against their plain
    versions and timed as above.
 4. A torch.profiler breakdown per eager forward of the ResNet-50 fused
@@ -284,14 +300,6 @@ REPO = pathlib.Path(__file__).resolve().parent
 PKG = "cnns_slfp_quantization_tpu_torch"
 B = 64
 NO_CHAIN = {"chain": frozenset()}   # ResNet-50 without K6 (JAX's default)
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12            # dense bf16 tensor cores
-F32_OPS = 67e12                # float32 outside the tensor cores
-# integer/float operations per element of the elementwise kernels, counted
-# from csrc/slfp.cuh (quantize ~25, epilogue affine+residual+ReLU+quantize
-# ~35); both are far below the bytes bound
-K1_OPS, K3_OPS = 25, 35
-DW_OPS = 18                    # K5's stencil: 9 multiply-adds per element
 # ms per launch of the wmma design of K2 and K4 that the shared Hopper
 # mainloop replaced, per shape at batch 64 (K2 with bf16 weights, K4 with
 # uint8 codes), from this script's last run on that design (NVIDIA H100
@@ -383,13 +391,6 @@ def phase(name):
     return wrap
 
 
-def bound_ms(nbytes, ops, peak):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 class Row:
     """One kernel's JSON entry.  Per path, per-forward totals: the sum over
     the path's shapes of (value at that shape) x (launches of that shape per
@@ -412,6 +413,9 @@ class Row:
 
     def add(self, per_fwd, ms, plain_ms, nbytes, ops, peak, lib_ms=None,
             path=None):
+        from cnns_slfp_quantization_tpu_torch.utils.bench_roofline import (
+            HBM_BYTES_PER_S, bound_ms)
+
         d = self._path(path)
         d["ms"] = (d["ms"] or 0.0) + per_fwd * ms
         d["plain_ms"] = (d["plain_ms"] or 0.0) + per_fwd * plain_ms
@@ -906,6 +910,16 @@ def main() -> int:
     from cnns_slfp_quantization_tpu_torch.utils import (
         bench_epilogue,
         bench_gemm,
+    )
+    # the H100's peak rates, the elementwise kernels' operations per element
+    # and the bound formula: one home, the roofline tool
+    from cnns_slfp_quantization_tpu_torch.utils.bench_roofline import (
+        BF16_FLOPS,
+        DW_OPS,
+        F32_OPS,
+        K1_OPS,
+        K3_OPS,
+        bound_ms,
     )
     from cnns_slfp_quantization_tpu_torch.utils.profiling import (
         kernel_ms, median_ms, print_forward_profile, throughput)
@@ -3562,6 +3576,102 @@ def main() -> int:
 
         k2_against_plain("quant_sites_default_none", ceiling)
 
+    # ------------------------------------------------ the ported tools
+    @phase("tools: the measuring tools in-process at a small size "
+           "(roofline at batch 64, QAT cost by quantize class, packed "
+           "weights, block input, ShuffleNetV2 gate, act-variant "
+           "calibration, task probe)")
+    def tools_phase(sh_scales):
+        import tempfile
+
+        from cnns_slfp_quantization_tpu_torch.utils import (
+            bench_blockin,
+            bench_packed_fused,
+            bench_roofline,
+            bench_shufflenet_fused,
+            bench_train_sites,
+            calibrate_act_variants,
+            tune_task_signal,
+        )
+
+        t0 = time.perf_counter()
+        # the slice's path: every row of the default forward at batch 64,
+        # each kernel launched by its wrapper; the launches recorded are
+        # those of the executor's one eager forward that run_case makes with
+        # the counts set to 0 just before it (the rows' own launches are
+        # compared with them there: launches_agree)
+        eng = bench_roofline.engine(B, 224, dev)
+        summ = bench_roofline.run_case("default", eng, dev, card, runs=1,
+                                       engine_iters=8)
+        for key, cls in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"),
+                         ("k6", "K6")):
+            rows[key].counted("tools_roofline",
+                              summ["executor_launches"][cls], 1)
+        del eng
+        assert not summ["rows_above_bound"], summ["rows_above_bound"]
+        assert summ["launches_agree"], (summ["executor_launches"],
+                                        summ["row_launches"])
+        print(f"  roofline, default policy, batch {B}: rows "
+              f"{summ['total_ms']:.3f} ms against their bound "
+              f"{summ['total_roofline_ms']:.3f} ms (roofline_frac "
+              f"{summ['roofline_frac']:.3f}); the engine "
+              f"{summ['engine_ms_per_batch']:.3f} ms a batch; launches a "
+              f"forward {summ['executor_launches']} ({card})", flush=True)
+        # the QAT step by quantize class, CIFAR mobilenet at JAX's batch;
+        # the launches are those of the prod variant's one eager step, the
+        # counts set to 0 just before it
+        ts = bench_train_sites.run_net("mobilenet", batch=256, size=32,
+                                       n_classes=100, dev=dev, steps=2,
+                                       card=card)
+        assert all(ts["replay_bit_equal_to_eager"].values()), ts
+        step_launches = ts["eager_step_launches"]["prod"]
+        assert step_launches.get("act_quantize"), step_launches
+        for key, row in rows.items():
+            if step_launches.get(row.head["name"]):
+                row.counted("tools_train_sites",
+                            step_launches[row.head["name"]], 1)
+        # packed against float weights on the fused executor: the codes
+        # decode to the float-frozen values, so the logits are bit-equal
+        (flt, lf), (pk, lp) = (bench_packed_fused.measure(p, B, 224, dev,
+                                                          iters=4)
+                               for p in (False, True))
+        assert flt["finite"] and pk["finite"], (flt, pk)
+        cmp = bench_packed_fused.compare(lf, lp)
+        assert cmp["bit_equal"], cmp
+        assert pk["weight_MB"] < flt["weight_MB"], (flt, pk)
+        # the block-input guard: the dual form is the consumer placement
+        bi = bench_blockin.run(B, ["consumer", "pallas_dual"], 224, dev,
+                               steps=4)
+        assert all(g["outputs_bit_identical"] for g in bi["guard"]), bi
+        # ShuffleNetV2's gate, on the scales derived for its random weights
+        assert bench_shufflenet_fused.main(
+            ["--batch", str(B), "--steps", "2"], scales=sh_scales) == 0
+        # act-variant calibration, 2 steps, into a directory of its own
+        with tempfile.TemporaryDirectory() as tmp:
+            calibrate_act_variants.calibrate_variant(
+                "stl", train_steps=2, batch=32, size=224, calib_images=128,
+                out_dir=tmp)
+            got = json.loads((pathlib.Path(tmp) /
+                              "resnet50_stl_imgnet.json").read_text())
+        shipped = json.loads((REPO / PKG / "calib" / "constants" /
+                              "resnet50_stl_imgnet.json").read_text())
+        assert list(got) == list(shipped), (list(got), list(shipped))
+        assert all(len(got[k]) == len(shipped[k])
+                   for k in ("ka_max", "kw_max")), got
+        assert all(np.isfinite(v) and v > 0 for k in ("ka_max", "kw_max")
+                   for v in got[k]), got
+        # one probe of the synthetic task
+        acc = tune_task_signal.probe("mobilenet", 0.25, train_steps=10,
+                                     eval_images=128, proto_res=None,
+                                     classes=None, lr=None, seed=0)
+        assert 0.0 <= acc <= 100.0, acc
+        print(f"  tools: QAT cost_ms {ts['cost_ms']}, idle "
+              f"{ts['idle_share']}; weight MB float / packed "
+              f"{flt['weight_MB']:.2f} / {pk['weight_MB']:.2f} (logits "
+              f"bit-equal); "
+              f"probe fp32 top-1 {acc:.2f}%; the phase took "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+
     # ------------------------------------------------ determinism and mesh
     def same_state(a, b):
         return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
@@ -3947,6 +4057,10 @@ def main() -> int:
     recovery_phase()
     blockin_phase()
     quant_sites_phase()
+    if sh is not None:
+        tools_phase(sh[1])
+    else:
+        failures.append("tools: no ShuffleNetV2 scales")
     if sc_train is not None and mn is not None and sh is not None:
         determinism_phase(sc_train)
         nccl_phase(sc_train)

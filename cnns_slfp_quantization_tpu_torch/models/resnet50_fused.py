@@ -366,10 +366,10 @@ def _mm_f32(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return xq.to(torch.float32) @ w
 
 
-def _s2d_stem(xq: torch.Tensor, c: ConvKxK, k: int, pad: int = 3):
-    """kxk/s2/p3 stem as a 4x4/s1 conv on a 2x2 space-to-depth input
-    (JAX ``_space_to_depth_stem``; exact: the same sum over zero taps)."""
-    n, h, w, ch = xq.shape
+def _s2d_pad(xq: torch.Tensor, k: int, pad: int = 3):
+    """(the stem's input zero-padded to even extents, oh, ow): the first
+    step of :func:`_s2d_stem`."""
+    _, h, w, _ = xq.shape
     k2 = -(-k // 2) * 2
     oh, ow = (h + 2 * pad - k) // 2 + 1, (w + 2 * pad - k) // 2 + 1
 
@@ -377,12 +377,22 @@ def _s2d_stem(xq: torch.Tensor, c: ConvKxK, k: int, pad: int = 3):
         t = max(2 * out - 2 + k2 - pad - extent, 0)
         return t + ((pad + extent + t) & 1)
 
-    th, tw = trailing(h, oh), trailing(w, ow)
-    xp = F.pad(xq, (0, 0, pad, tw, pad, th))
-    hp, wp = h + pad + th, w + pad + tw
-    s2d = xp.reshape(n, hp // 2, 2, wp // 2, 2, ch).permute(
+    return F.pad(xq, (0, 0, pad, trailing(w, ow), pad, trailing(h, oh))), \
+        oh, ow
+
+
+def _s2d_layout(xp: torch.Tensor) -> torch.Tensor:
+    """NHWC -> its 2x2 space-to-depth form [N, H/2, W/2, 4C] (a copy)."""
+    n, hp, wp, ch = xp.shape
+    return xp.reshape(n, hp // 2, 2, wp // 2, 2, ch).permute(
         0, 1, 3, 2, 4, 5).reshape(n, hp // 2, wp // 2, 4 * ch)
-    return _conv_f32(s2d, c)[:, :oh, :ow, :].contiguous()
+
+
+def _s2d_stem(xq: torch.Tensor, c: ConvKxK, k: int, pad: int = 3):
+    """kxk/s2/p3 stem as a 4x4/s1 conv on a 2x2 space-to-depth input
+    (JAX ``_space_to_depth_stem``; exact: the same sum over zero taps)."""
+    xp, oh, ow = _s2d_pad(xq, k, pad)
+    return _conv_f32(_s2d_layout(xp), c)[:, :oh, :ow, :].contiguous()
 
 
 def _flat(x):
@@ -629,8 +639,10 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor, pol: dict,
                         y3, c3.scale, c3.shift, emit_raw=False,
                         quant_recip=rc[qn], q_dtype=q_dt, **post)
                 elif blockin == "packed":
-                    codes = k1.slfp34_pack_bits(xr_raw.to(f32) * torch.tensor(
-                        np.float32(rc[qn]), device=xr_raw.device))
+                    # a Python scalar: a tensor made from host data here
+                    # would be a copy that a CUDA graph's capture refuses
+                    codes = k1.slfp34_pack_bits(
+                        xr_raw.to(f32) * float(np.float32(rc[qn])))
                     # the codebook's values as bf16 (JAX ``_wv(codes)``)
                     xr_q = sfp.slfp34_decode_bits(codes).to(bf16).to(q_dt)
 

@@ -232,3 +232,75 @@ def load_pth(path, model: nn.Module, *, strict: bool = True):
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
     return import_torch_state_dict(sd, model, strict=strict)
+
+
+def export_torch_state_dict(model: nn.Module, template_state_dict) -> dict:
+    """Inverse of :func:`import_torch_state_dict` (JAX
+    ``export_torch_state_dict``, :184-258): fill a reference torch model's
+    ``state_dict`` (a shape and order template) with ``model``'s tensors.
+
+    ``model``'s tensors are read in flax's init order
+    (:func:`flax_template`) into the four streams (conv kernels, dense
+    kernels, 1-D BatchNorm scales and biases, BatchNorm running
+    statistics) and matched by position against the template's entries;
+    kernels go back to the reference's layout (HWIO -> OIHW, [in, out] ->
+    [out, in]) and every shape is verified.  ``num_batches_tracked`` keeps
+    the template's value.  A stream that runs out, an entry of another
+    kind, a shape that differs or a tensor left over raises.  Returns
+    ``{name: np.ndarray}`` (float32), loadable with
+    ``tmodel.load_state_dict({k: torch.from_numpy(v) ...})``.
+    """
+    mods = dict(model.named_modules())
+    streams = {k: [] for k in ("conv", "dense", "scale", "bias", "mean",
+                               "var")}
+    for _, path, leaf, shape in flax_template(model):
+        mod = mods[".".join(path)]
+        attr = (_BN if isinstance(mod, nn.BatchNorm2d) else _CONV)[
+            ("batch_stats" if leaf in ("mean", "var") else "params", leaf)]
+        arr = getattr(mod, attr).detach().cpu().numpy().astype(np.float32)
+        # the port stores the reference's layout: through flax's and back
+        flax = _transpose_to_flax(arr)
+        if tuple(flax.shape) != tuple(shape):
+            raise ValueError(f"{'/'.join(path)}/{leaf}: {flax.shape} vs "
+                             f"flax {shape}")
+        kind = ("conv" if flax.ndim == 4 else "dense") if leaf == "kernel" \
+            else leaf
+        streams[kind].append(_transpose(flax))
+    consumed = dict.fromkeys(streams, 0)
+    out = {}
+    for name, t in template_state_dict.items():
+        tmpl = np.asarray(t.detach().cpu().numpy() if hasattr(t, "detach")
+                          else t)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "num_batches_tracked":
+            out[name] = tmpl      # not tracked by flax: the template's value
+            continue
+        kind = {"bias": "bias", "running_mean": "mean",
+                "running_var": "var"}.get(leaf)
+        if leaf == "weight":
+            kind = {4: "conv", 2: "dense", 1: "scale"}.get(tmpl.ndim)
+        if kind is None:
+            raise ValueError(f"unexpected torch state_dict entry {name}")
+        if consumed[kind] == len(streams[kind]):
+            raise ValueError(f"{kind}: the template wants more than the "
+                             f"model's {len(streams[kind])} tensors (at "
+                             f"{name})")
+        arr = streams[kind][consumed[kind]]
+        consumed[kind] += 1
+        if arr.shape != tmpl.shape:
+            raise ValueError(f"shape mismatch at {name}: "
+                             f"ours {arr.shape} vs torch {tmpl.shape}")
+        out[name] = arr
+    for kind, arrs in streams.items():
+        if consumed[kind] != len(arrs):
+            raise ValueError(f"{kind}: torch template consumed "
+                             f"{consumed[kind]} of {len(arrs)} flax tensors")
+    return out
+
+
+def _transpose_to_flax(arr: np.ndarray) -> np.ndarray:
+    if arr.ndim == 4:
+        return np.transpose(arr, (2, 3, 1, 0))  # OIHW -> HWIO
+    if arr.ndim == 2:
+        return np.transpose(arr, (1, 0))        # [out, in] -> [in, out]
+    return arr

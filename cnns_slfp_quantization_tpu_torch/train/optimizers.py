@@ -131,9 +131,11 @@ class QSGD(_Counted, torch.optim.Optimizer):
         self.stats = None if stats is None else dict(stats)
         super().load_state_dict(state_dict)
 
-    def _scale(self, p, pd):
-        """The extra step's scale (JAX's ``rescale``), and ``1 + scale`` as
-        XLA computes it."""
+    def _scale(self, p, d1):
+        """The extra step's scale for the ordinary update ``d1`` of ``p``
+        (JAX's ``rescale(p, delta1, quantize)``), and ``1 + scale`` as XLA
+        computes it."""
+        pd = p + d1
         if self.rule == "dsgd":
             moved = (sfp.quantize_weight(p, self.qbit)
                      - sfp.quantize_weight(pd, self.qbit)).abs()
@@ -199,7 +201,7 @@ class QSGD(_Counted, torch.optim.Optimizer):
             new = affine_f32(d, neg_lr, p)
         else:
             d1 = d * neg_lr
-            scale, factor = self._scale(p, p + d1)
+            scale, factor = self._scale(p, d1)
             new = affine_f32(d1, factor, p)
         sizes = [t.numel() for t in ps]
         if self.rule != "sgd" and self.stats is not None \

@@ -188,6 +188,36 @@ def capture(fn: Callable[[], object], device, before=None, generator=None):
     return graph, out, {k: after[k] - counts[k] for k in after}
 
 
+def graph_ms(fn: Callable[[], object], calls: int, *, reps: int = 5,
+             device=None) -> float:
+    """Milliseconds per call of ``fn``, ``calls`` calls of it captured in
+    one CUDA graph (:func:`capture`) and replayed between CUDA events: the
+    median of 3 timings of ``reps`` replays after one.  The time runs from
+    the first kernel to the last, with the graph's gaps between kernels
+    (under a microsecond each) but no host time; unlike the profiler's
+    kernel records it cannot be lost or misread in a long-lived process."""
+    torch = _require_cuda()
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    graph, out, _ = capture(run, device or torch.device("cuda"))
+    graph.replay()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / (reps * calls))
+    del graph, out
+    return statistics.median(times)
+
+
 class GraphedForward:
     """``forward`` captured once in a CUDA graph on ``x``'s shape, under
     ``torch.inference_mode`` (:func:`capture`); each call copies its input
@@ -279,6 +309,61 @@ def scan_train_throughput(train_step: Callable, state, x0, y0, *,
     return x0.shape[0] * steps / _best_of_3(run, x0.device)
 
 
+MARKER = "spin_kernel"     # torch.cuda._sleep's kernel, as traces name it
+
+
+class MarkerLost(RuntimeError):
+    """A trace lost its marker kernel with its first records."""
+
+
+def after_marker(events) -> list:
+    """The device records of a trace that follow its last marker kernel
+    (:data:`MARKER`), in start order.
+
+    A trace can lose its first records: on the H100, after other traces in
+    one process, from a few to a few hundred, the same in trace after
+    trace.  So a traced window starts with one call of the work and then
+    the marker (:func:`marked_trace`), and only what follows the marker
+    counts; a trace that lost the marker too raises."""
+    evs = sorted(events, key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(evs) if MARKER in e.name]
+    if not marks:
+        raise MarkerLost(f"the trace lost its marker kernel ({len(evs)} "
+                         f"device records kept): not measured")
+    return evs[marks[-1] + 1:]
+
+
+def by_name(events, calls: int) -> list:
+    """[(kernel name, device ms per call, launches per call)] of device
+    records, the longest first."""
+    out = {}
+    for e in events:
+        ms, n = out.get(e.name, (0.0, 0))
+        out[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / calls, n + 1)
+    return sorted(((k, ms, n / calls) for k, (ms, n) in out.items()),
+                  key=lambda e: -e[1])
+
+
+@contextlib.contextmanager
+def marked_trace(lead_in: Callable[[], object]):
+    """torch.profiler around the enclosed block, after one untimed call of
+    ``lead_in`` and a marker kernel inside the trace; yields a list that
+    holds, when the block ends (synchronised), the device records that
+    follow the marker (:func:`after_marker`)."""
+    torch = _require_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kept: list = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_in()
+        torch.cuda._sleep(1)
+        yield kept
+        torch.cuda.synchronize()
+    kept += after_marker(e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+
+
 def busy_ms(fn: Callable[[], object], calls: int = 3):
     """(wall ms, kernel ms, {kernel class: ms}, {wrapper: launches}): CUDA
     events around ``calls`` calls after one untimed call, and
@@ -287,37 +372,21 @@ def busy_ms(fn: Callable[[], object], calls: int = 3):
     call; and the hand kernels the trace holds over all ``calls`` calls,
     counted by name (:data:`HAND_KERNELS`): a CUDA graph's replay launches
     them without Python, where no wrapper counts.  The idle share is
-    ``1 - kernel / wall``.
-
-    A trace can lose its first records: on the H100, after other traces in
-    one process, from a few to a few hundred, the same in trace after
-    trace.  So one call of ``fn`` and then a marker kernel (``_sleep``'s
-    ``spin_kernel``) go first, and only the records after the marker
-    count; a trace that lost the marker too raises."""
+    ``1 - kernel / wall``.  The trace starts with a lead-in call and a
+    marker kernel (:func:`marked_trace`)."""
     torch = _require_cuda()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda._sleep(1)
+    with marked_trace(fn) as evs:
         start.record()
         for _ in range(calls):
             fn()
         end.record()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(evs) if "spin_kernel" in e.name]
-    if not marks:
-        raise RuntimeError(f"the trace lost its marker kernel ({len(evs)} "
-                           f"device records kept): not measured")
     classes, launches = {}, dict.fromkeys(HAND_KERNELS, 0)
-    for e in evs[marks[-1] + 1:]:
+    for e in evs:
         c = kernel_class(e.name)
         classes[c] = (classes.get(c, 0.0)
                       + e.time_range.elapsed_us() / 1e3 / calls)
@@ -347,41 +416,72 @@ def kernel_ms(fn: Callable[[], object], *, reps: int = 5, runs: int = 3,
               tries: int = 8) -> float:
     """Device milliseconds per call of the kernels ``fn`` launches, from
     torch.profiler (the host's share excluded): the median of ``runs``
-    profiled runs of ``reps`` calls.  Events around back-to-back calls of
-    a kernel of a few microseconds would time the host instead.
+    profiled runs of ``reps`` calls that recorded every kernel
+    (:func:`kernel_profile`).  Events around back-to-back calls of a
+    kernel of a few microseconds would time the host instead."""
+    return kernel_profile(fn, reps, runs=runs, tries=tries)["ms"]
 
+
+LEAD_DOUBLINGS = 4
+
+
+def kernel_profile(fn: Callable[[], object], calls: int, *, runs: int = 3,
+                   tries: int = 8, lead: int = 16) -> dict:
+    """{"ms", "classes", "launches", "kernels"}: the device milliseconds
+    per call of the kernels ``fn`` launches, in all and by
+    :func:`kernel_class`, the hand kernels per call counted by name
+    (:data:`HAND_KERNELS`) and the device kernels per call, from the run
+    whose time is the median of ``runs`` profiled runs of ``calls`` calls,
+    each after ``lead`` lead-in calls and a marker kernel
+    (:func:`marked_trace`); a trace that lost its first records, the
+    marker with them, is run again with twice the lead-in, at most
+    :data:`LEAD_DOUBLINGS` times, and then :class:`MarkerLost` is raised.
     The profiler can lose kernel events, and a run that lost some reads
-    low.  So only runs that recorded every kernel count
-    (:func:`whole_runs`), the hand kernels known from the wrappers' launch
-    counts around an unprofiled call; the others are run again, up to
-    ``tries * runs`` runs in all, and then it raises."""
+    low: only runs that recorded every kernel count (:func:`whole_runs`:
+    the fullest runs, and at least the hand kernels the wrappers count
+    around an unprofiled call); the others are run again, up to ``tries *
+    runs`` runs in all, and then it raises."""
     torch = _require_cuda()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     before = _hand_launches()
     fn()
     torch.cuda.synchronize()
-    floor = reps * (_hand_launches() - before)
-    seen = []           # (kernel events, device us) of each run
+    floor = calls * (_hand_launches() - before)
+    seen, kept_runs, doublings = [], [], 0
     for _ in range(tries * runs):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        seen.append((sum(e.count for e in events),
-                     sum(e.self_device_time_total for e in events)))
-        whole = whole_runs(seen, floor)
-        if len(whole) >= runs:
-            return statistics.median(whole[:runs]) / 1e3 / reps
-    raise RuntimeError(
-        f"torch.profiler recorded every kernel of {reps} calls in only "
-        f"{len(whole_runs(seen, floor))} of {len(seen)} runs (kernel events "
-        f"per run: {[n for n, _ in seen]}; hand kernels per call: "
-        f"{floor // reps})")
+        try:
+            with marked_trace(lambda: [fn() for _ in range(lead)]) as kept:
+                for _ in range(calls):
+                    fn()
+        except MarkerLost:
+            if doublings == LEAD_DOUBLINGS:
+                raise
+            lead, doublings = lead * 2, doublings + 1
+            continue
+        seen.append((len(kept), sum(e.time_range.elapsed_us()
+                                    for e in kept)))
+        kept_runs.append(kept)
+        if len(whole_runs(seen, floor)) >= runs:
+            break
+    else:
+        raise RuntimeError(
+            f"torch.profiler recorded every kernel of {calls} calls in only "
+            f"{len(whole_runs(seen, floor))} of {len(seen)} traced runs "
+            f"(kernel records per run: {[n for n, _ in seen]}; hand kernels "
+            f"per call: {floor // calls})")
+    full = max(n for n, _ in seen)
+    whole = sorted((t, i) for i, (n, t) in enumerate(seen) if n == full)
+    kept = kept_runs[whole[len(whole) // 2][1]]
+    classes, launches = {}, dict.fromkeys(HAND_KERNELS, 0.0)
+    for e in kept:
+        c = kernel_class(e.name)
+        classes[c] = (classes.get(c, 0.0)
+                      + e.time_range.elapsed_us() / 1e3 / calls)
+        for name, pattern in HAND_KERNELS.items():
+            launches[name] += bool(re.search(pattern, e.name)) / calls
+    return {"ms": sum(classes.values()), "classes": classes,
+            "launches": launches, "kernels": len(kept) / calls}
 
 
 def is_f32_copy(name: str) -> bool:
@@ -397,31 +497,23 @@ def print_forward_profile(fn: Callable[[], object], batch: int,
     """Print a forward ``fn`` under torch.profiler, per call after one
     untimed call: wall time between CUDA events, kernel time, the share of
     the wall with no kernel running, the bf16 -> float32 copies
-    (:func:`is_f32_copy`) and the ``top`` kernels.  A measurement, not a
-    check: a profile with no device time, or whose kernels outlast the
-    wall, is reported as not measured."""
+    (:func:`is_f32_copy`) and the ``top`` kernels.  The trace starts with a
+    lead-in call and a marker kernel (:func:`marked_trace`).  A
+    measurement, not a check: a profile with no device time, or whose
+    kernels outlast the wall, is reported as not measured."""
     torch = _require_cuda()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with marked_trace(fn) as kept:
         start.record()
         for _ in range(calls):
             fn()
         end.record()
-        torch.cuda.synchronize()
     wall = start.elapsed_time(end) / calls
-    # kernel events only: operator events repeat their kernels' time
-    evs = sorted(((e.key, getattr(e, "self_device_time_total", getattr(
-        e, "self_cuda_time_total", 0)) / 1e3 / calls, e.count / calls)
-        for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-        key=lambda e: -e[1])
-    evs = [e for e in evs if e[1] > 0]
+    evs = [e for e in by_name(kept, calls) if e[1] > 0]
     if not evs:
         print("  profiler: no device time recorded (not measured)",
               flush=True)
@@ -493,13 +585,12 @@ def phase_profile(phases, calls: int = 3, top: int = 12) -> dict:
     """Where a step's device time goes: ``phases`` is a list of (label, fn)
     run in turn per call.  CUDA events between the phases give each
     phase's span on the device (its kernels and the gaps between them, in
-    stream order); torch.profiler over the same calls gives the kernel
-    time by class (:func:`kernel_class`) and the ``top`` kernels.
-    Returns {"wall": ms, "phases": {label: ms}, "classes": {class: ms},
-    "top": [(name, ms, launches)]}, all per call."""
+    stream order); torch.profiler over the same calls, after a lead-in
+    call and a marker kernel (:func:`marked_trace`), gives the kernel time
+    by class (:func:`kernel_class`) and the ``top`` kernels.  Returns
+    {"wall": ms, "phases": {label: ms}, "classes": {class: ms}, "top":
+    [(name, ms, launches)]}, all per call."""
     torch = _require_cuda()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def run(marks=None):
         for i, (_, fn) in enumerate(phases):
@@ -513,20 +604,17 @@ def phase_profile(phases, calls: int = 3, top: int = 12) -> dict:
     torch.cuda.synchronize()
     marks = [[torch.cuda.Event(enable_timing=True)
               for _ in range(len(phases) + 1)] for _ in range(calls)]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with marked_trace(run) as kept:
         for m in marks:
             run(m)
-        torch.cuda.synchronize()
     out = {"wall": sum(m[0].elapsed_time(m[-1]) for m in marks) / calls,
            "phases": {label: sum(m[i].elapsed_time(m[i + 1])
                                  for m in marks) / calls
                       for i, (label, _) in enumerate(phases)},
            "classes": {}}
-    evs = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / calls,
-            e.count / calls) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+    evs = by_name(kept, calls)
     for key, ms, _ in evs:
         c = kernel_class(key)
         out["classes"][c] = out["classes"].get(c, 0.0) + ms
-    out["top"] = sorted(evs, key=lambda e: -e[1])[:top]
+    out["top"] = evs[:top]
     return out

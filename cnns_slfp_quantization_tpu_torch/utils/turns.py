@@ -1,5 +1,6 @@
 """Timing in turns, shared by the bench tools (``bench_gemm``, ``bench_dw``,
-``bench_chain``): the card's name and power limit, a tool's measurements
+``bench_chain``, and the device choice of every ``bench_*`` tool): the
+card's name and power limit, a tool's measurements
 through another checkout's wrappers in a process of its own, and two
 calls timed in alternating turns.  Needs a CUDA device."""
 
@@ -31,6 +32,22 @@ def card() -> Optional[str]:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     return smi.stdout.strip()
+
+
+def device(name: str = "cuda"):
+    """(torch.device, its line for a tool's output) for a tool's
+    ``--device``: on the card (the default) the line is :func:`card`'s,
+    and without a CUDA device it raises; ``"cpu"`` runs the plain versions,
+    whose numbers are counts, never a device's times."""
+    import torch
+
+    if name == "cpu":
+        return torch.device("cpu"), "cpu (plain versions: no device time)"
+    if not torch.cuda.is_available():
+        raise RuntimeError("this tool runs on the card by default and found "
+                           "no CUDA device; pass --device cpu to run the "
+                           "plain versions on the CPU")
+    return torch.device(name), card()
 
 
 def worker(script: str, root: pathlib.Path, *args: str,

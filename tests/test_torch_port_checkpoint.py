@@ -222,6 +222,61 @@ def test_strict_errors_as_jax():
 
 
 # ---------------------------------------------------------------------------
+# the export into a reference-layout state_dict
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("net", list(NETS))
+def test_export_torch_state_dict_matches_jax(cases, net):
+    """The port's export of a model holding the variables gives JAX's
+    export of the same variables into the same reference-layout template,
+    every entry bit for bit (``num_batches_tracked`` the template's), and
+    importing it back gives the variables bit for bit."""
+    c = cases(net)
+    want = jckpt.export_torch_state_dict(c["v"], c["sd"])
+    model = _port_model(net, NETS[net])
+    tckpt.load_jax_variables(model, c["v"])
+    got = tckpt.export_torch_state_dict(model, c["sd"])
+    assert list(got) == list(want)
+    for name, b in want.items():
+        a, b = np.asarray(got[name]), np.asarray(b)
+        assert (a.dtype, a.shape) == (b.dtype, b.shape), name
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    back = tckpt.import_torch_state_dict(
+        {k: torch.from_numpy(np.asarray(v)) for k, v in got.items()}, model)
+    w_leaves = [(coll, p, k, a) for coll in c["v"]
+                for p, k, a in _walk(c["v"][coll])]
+    g_leaves = [(coll, p, k, a) for coll in back
+                for p, k, a in _walk(back[coll])]
+    assert [x[:3] for x in g_leaves] == [x[:3] for x in w_leaves]
+    for (*key, a), (*_, b) in zip(g_leaves, w_leaves):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32),
+                                      err_msg=str(key))
+
+
+def test_export_strict_as_jax(cases):
+    """A template with a tensor too many raises in both (JAX runs out of
+    its stream, an IndexError); one with a tensor too few raises in both
+    with JAX's message."""
+    c = cases("squeezenet")
+    model = _port_model("squeezenet", NETS["squeezenet"])
+    tckpt.load_jax_variables(model, c["v"])
+    extra = dict(c["sd"], **{"extra.weight": torch.zeros(4, 4, 1, 1)})
+    with pytest.raises(IndexError):
+        jckpt.export_torch_state_dict(c["v"], extra)
+    with pytest.raises(ValueError, match="conv: the template wants more"):
+        tckpt.export_torch_state_dict(model, extra)
+    fewer = dict(c["sd"])
+    fewer.pop("classifier.bias")
+    for exp, arg in ((jckpt.export_torch_state_dict, c["v"]),
+                     (tckpt.export_torch_state_dict, model)):
+        with pytest.raises(ValueError, match="bias: torch template consumed"):
+            exp(arg, fewer)
+
+
+# ---------------------------------------------------------------------------
 # the engine serving a .pth, against JAX's engine
 # ---------------------------------------------------------------------------
 

@@ -139,7 +139,8 @@ NEW_PACKAGES = ("train", "utils", "data", "cli")
     ids=lambda p: str(p.relative_to(REPO)))
 def test_training_modules_import_neither_jax_nor_the_jax_package(path):
     """The import guard (tests/test_torch_port_resnet.py walks every port
-    module) over the training, data and CLI packages."""
+    module) over the training, data, CLI and tools packages: no JAX, no
+    JAX package, and none of the JAX tools (``tools/``)."""
     for node in ast.walk(ast.parse(path.read_text())):
         names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                  else [node.module] if isinstance(node, ast.ImportFrom)
@@ -148,6 +149,7 @@ def test_training_modules_import_neither_jax_nor_the_jax_package(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax"), (path, mod)
             assert top != "cnns_slfp_quantization_tpu", (path, mod)
+            assert top != "tools", (path, mod)
 
 
 def test_cli_pretrain_reads_a_reference_pth(tmp_path):
