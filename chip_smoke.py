@@ -2663,8 +2663,7 @@ def main() -> int:
     from cnns_slfp_quantization_tpu_torch.ops.backend import exact_f32
     from cnns_slfp_quantization_tpu_torch.train import loop as tloop
     from cnns_slfp_quantization_tpu_torch.train import optimizers as topt
-    from cnns_slfp_quantization_tpu_torch.utils.profiling import (
-        phase_profile)
+    from cnns_slfp_quantization_tpu_torch.utils import profiling
 
     TB = 256                       # the CIFAR driver's default batch
     # K1 at every quantized layer's input (conv0, 13 depthwise, 13
@@ -2904,20 +2903,33 @@ def main() -> int:
               f"(training steps)", flush=True)
         return ips
 
-    def step_phases(model, opt, x, y):
-        """A training step as three phases for phase_profile."""
-        held = {}
+    PHASE_STEPS = 4
 
-        def forward():
-            model.train()
-            held["loss"] = tloop.cross_entropy(model(x), y)
-
-        def backward():
-            opt.zero_grad(set_to_none=True)
-            held["loss"].backward()
-
-        return [("forward", forward), ("backward", backward),
-                ("optimizer", opt.step)]
+    def step_profile(step, x, y, calls=3):
+        """Where a step's device time goes: the mean of its own phase spans
+        (``train.forward``, ``train.backward``, ``train.optimizer``, CUDA
+        events between them) over PHASE_STEPS recorded steps, each waited
+        for, so that every step's events are read; torch.profiler's kernel
+        time by class and the top kernels over ``calls`` further steps
+        after a lead-in step and a marker kernel."""
+        profiling.reset()
+        with profiling.recording():
+            for _ in range(PHASE_STEPS):
+                step(x, y)
+                torch.cuda.synchronize()
+        phases = {n: profiling.spans(n) for n in tloop.PHASES}
+        assert all(st.count == PHASE_STEPS for st in phases.values()), {
+            n: st.count for n, st in phases.items()}
+        with profiling.marked_trace(lambda: step(x, y)) as kept:
+            for _ in range(calls):
+                step(x, y)
+        evs = profiling.by_name(kept, calls)
+        classes = {}
+        for key, ms, _ in evs:
+            c = profiling.kernel_class(key)
+            classes[c] = classes.get(c, 0.0) + ms
+        return {"phases": {n: st.mean_ns / 1e6 for n, st in phases.items()},
+                "classes": classes, "top": evs[:12]}
 
     @phase("training images/s and where the step's time goes, batch 256")
     def train_speed_phase(sc):
@@ -2942,20 +2954,20 @@ def main() -> int:
               + f"; route A / fp32 {mean['route_A_slfp8_bf16_k1'] / mean['fp32']:.3f}"
               f", route B / fp32 {mean['route_B_slfp8_bf16_k4'] / mean['fp32']:.3f}",
               flush=True)
-        for k, m in routes.items():
+        for k in routes:
             try:
-                with exact_f32():
-                    prof = phase_profile(step_phases(m, steps[k][1], x, y))
+                prof = step_profile(steps[k][2], x, y)
             except Exception:  # a measurement; the checks decide success
                 print(f"  profile {k}: failed (not measured)\n"
                       f"{traceback.format_exc()}", flush=True)
                 continue
             busy = sum(prof["classes"].values())
-            print(f"  profile {k} per step at batch {TB}: wall "
-                  f"{prof['wall']:.3f} ms (" + ", ".join(
+            wall = sum(prof["phases"].values())
+            print(f"  profile {k} per step at batch {TB}: phases "
+                  f"{wall:.3f} ms (" + ", ".join(
                       f"{ph} {ms:.3f}" for ph, ms in prof["phases"].items())
                   + f"), kernels {busy:.3f} ms, idle share "
-                  f"{1 - busy / prof['wall']:.3f}; by class: " + ", ".join(
+                  f"{1 - busy / wall:.3f}; by class: " + ", ".join(
                       f"{c} {ms:.3f}" for c, ms in prof["classes"].items())
                   + " ms", flush=True)
             for name, ms, n in prof["top"]:

@@ -5,7 +5,10 @@ library ``build/kernels/lib<name>-<digest>.so`` beside the package, the first
 time a wrapper needs it.  The digest covers the sources and flags, so an
 edited kernel is rebuilt and a stale library is never loaded.  Several
 sources build at once: :func:`build` starts one nvcc per missing library and
-waits for all of them.  A failed build raises with nvcc's output.
+waits for all of them.  A failed build raises with nvcc's output.  The
+build records the span ``kernels.build`` and counts ``kernels.nvcc`` (the
+libraries compiled in this process); a library's first load records
+``kernels.load`` (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import time
 
 import numpy as np
 import torch
+
+from cnns_slfp_quantization_tpu_torch.utils import profiling
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -105,26 +110,28 @@ def build(names=SOURCES) -> float:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = []
-    for name in todo:
-        # write to a private name, then rename: a concurrent loader never
-        # sees a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs.append((name, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    errors = []
-    for name, tmp, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n"
-                          f"{out.decode(errors='replace')}")
-        else:
-            os.replace(tmp, library_path(name))
+    with profiling.span("kernels.build"):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for name in todo:
+            # write to a private name, then rename: a concurrent loader
+            # never sees a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            procs.append((name, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        profiling.count("kernels.nvcc", len(procs))
+        errors = []
+        for name, tmp, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n"
+                              f"{out.decode(errors='replace')}")
+            else:
+                os.replace(tmp, library_path(name))
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
@@ -135,11 +142,12 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+            with profiling.span("kernels.load"):
+                build((name,))
+                lib = ctypes.CDLL(str(library_path(name)))
+                for fn, argtypes in SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return lib
 

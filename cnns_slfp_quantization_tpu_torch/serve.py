@@ -39,6 +39,16 @@ card: over a model axis > 1 the forward gathers shards through
 ``torch.distributed`` every call, which a CUDA graph cannot hold.
 ``graphed`` says which of the two an engine does.
 
+While spans record (``utils.profiling.on``: a torch.profiler session, or
+``profiling.recording()``) each ``forward`` records ``engine.forward``
+with ``engine.copy_in``, ``engine.replay`` and ``engine.clone`` (graphed)
+or ``engine.eager``, counts ``engine.requests``, and on the card times the
+device's wait since the engine's previous request, where both were
+recorded in one stretch (``engine.wait``: from that request's last stream
+operation to this one's first, between CUDA events, so the caller's copy
+to the host and its turn-around lie inside).  The build always records ``engine.build`` with ``model.create``,
+``engine.load``, ``engine.freeze`` and ``engine.prepare``.
+
 ``mesh=`` (``parallel.make_mesh``) serves over a ``("data", "model")``
 mesh, every rank building the engine with the same arguments:
 ``batch_size`` is the global batch and each rank runs its ``batch_size //
@@ -65,6 +75,7 @@ from cnns_slfp_quantization_tpu_torch.parallel import comm
 from cnns_slfp_quantization_tpu_torch.parallel import mesh as mesh_lib
 from cnns_slfp_quantization_tpu_torch.parallel.steps import place_rows
 from cnns_slfp_quantization_tpu_torch.train import checkpoint as ckpt_lib
+from cnns_slfp_quantization_tpu_torch.utils import profiling
 
 # nets with a fused executor -> its module (JAX serve.py:63-70): CIFAR
 # mobilenet has a quantized classifier, ImageNet mobilenetv1 a float32 one;
@@ -162,46 +173,59 @@ class InferenceEngine:
                                  f"the data-parallel mesh axis ({data})")
         self.image_size = image_size or default_image_size(net)
         self.policy = policy
-        if generator is None:
-            generator = torch.Generator().manual_seed(seed)
-        model = models.create_model(
-            net, qbit, scales=scales, compute_dtype=compute_dtype,
-            use_pallas=use_pallas, image_size=self.image_size,
-            generator=generator)
-        if checkpoint and str(checkpoint).endswith(".pth"):
-            ckpt_lib.load_jax_variables(model,
-                                        ckpt_lib.load_pth(checkpoint, model))
-        elif checkpoint:
-            model.load_state_dict(torch.load(checkpoint, map_location="cpu",
-                                             weights_only=True))
-        model.eval()
-        if qbit in (7, 8):
-            # packing targets the SLFP<3,4> codes: qbit 7 stores values
-            if pack_weights and qbit == 8:
-                freeze.pack(model)
-            else:
-                freeze.prequantize(
-                    model, torch.bfloat16 if fused else
-                    compute_dtype or torch.float32)
-        if fused:
-            executor = importlib.import_module(
-                f"cnns_slfp_quantization_tpu_torch.models.{FUSABLE[net]}")
-            self.executor = executor.prepare(model, device=self.device)
-            if model_axis > 1:
-                self.executor = executor.shard_weights(self.executor, mesh)
-            self._eager = lambda x: executor.fused_apply(
-                self.executor, x, policy=self.policy)
-        else:
-            self.model = model.to(self.device)
-            if model_axis > 1:
-                mesh_lib.shard_module(self.model, mesh)
-            self._eager = (self._quantized_module if qbit in (7, 8)
-                           else self.model)
+        with profiling.span("engine.build"):
+            with profiling.span("model.create"):
+                if generator is None:
+                    generator = torch.Generator().manual_seed(seed)
+                model = models.create_model(
+                    net, qbit, scales=scales, compute_dtype=compute_dtype,
+                    use_pallas=use_pallas, image_size=self.image_size,
+                    generator=generator)
+            if checkpoint:
+                with profiling.span("engine.load"):
+                    if str(checkpoint).endswith(".pth"):
+                        ckpt_lib.load_jax_variables(
+                            model, ckpt_lib.load_pth(checkpoint, model))
+                    else:
+                        model.load_state_dict(torch.load(
+                            checkpoint, map_location="cpu",
+                            weights_only=True))
+            model.eval()
+            if qbit in (7, 8):
+                with profiling.span("engine.freeze"):
+                    # packing targets the SLFP<3,4> codes: qbit 7 stores
+                    # values
+                    if pack_weights and qbit == 8:
+                        freeze.pack(model)
+                    else:
+                        freeze.prequantize(
+                            model, torch.bfloat16 if fused else
+                            compute_dtype or torch.float32)
+            with profiling.span("engine.prepare"):
+                if fused:
+                    executor = importlib.import_module(
+                        f"cnns_slfp_quantization_tpu_torch.models."
+                        f"{FUSABLE[net]}")
+                    self.executor = executor.prepare(model,
+                                                     device=self.device)
+                    if model_axis > 1:
+                        self.executor = executor.shard_weights(
+                            self.executor, mesh)
+                    self._eager = lambda x: executor.fused_apply(
+                        self.executor, x, policy=self.policy)
+                else:
+                    self.model = model.to(self.device)
+                    if model_axis > 1:
+                        mesh_lib.shard_module(self.model, mesh)
+                    self._eager = (self._quantized_module if qbit in (7, 8)
+                                   else self.model)
         local = batch_size // (1 if mesh is None
                                else mesh_lib.axis_size(mesh, "data"))
         self.input_shape = (local, self.image_size, self.image_size, 3)
         self.graphed = self.device.type == "cuda" and model_axis == 1
         self._graph = None        # captured at the first call (graphed)
+        # the last recorded request's last event, and its stretch (epoch)
+        self._tail = None
 
     def _quantized_module(self, x: torch.Tensor) -> torch.Tensor:
         """The qbit 7 / 8 module path (K4 where ``use_pallas`` routes an
@@ -224,10 +248,8 @@ class InferenceEngine:
                 f"fixed batch); got {x.dtype} {tuple(x.shape)}: predict() "
                 f"pads any batch to it")
         if self._graph is None:
-            from cnns_slfp_quantization_tpu_torch.utils.profiling import (
-                GraphedForward)
-
-            self._graph = GraphedForward(self._eager, x)
+            self._graph = profiling.GraphedForward(self._eager, x,
+                                                   spans="engine")
         return self._graph(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -235,11 +257,38 @@ class InferenceEngine:
         (under a mesh: the rank's rows), at the engine's fixed input shape
         where it serves through its graph; a tensor of its own, which no
         later call overwrites."""
-        y = self._dispatch(x)
-        if self.graphed:
-            with torch.inference_mode():
-                return y.clone()
+        rec = profiling.on()
+        wait = rec and self.device.type == "cuda"
+        with profiling.span_if(rec, "engine.forward"):
+            if wait:
+                first = torch.cuda.Event(enable_timing=True)
+                first.record()
+            if self.graphed:
+                y = self._dispatch(x)   # engine.copy_in, engine.replay
+                with profiling.span_if(rec, "engine.clone"), \
+                        torch.inference_mode():
+                    y = y.clone()
+            else:
+                with profiling.span_if(rec, "engine.eager"):
+                    y = self._dispatch(x)
+            if wait:
+                self._wait(first)
+            if rec:
+                profiling.count("engine.requests")
+            else:
+                self._tail = None     # no wait across unrecorded requests
         return y
+
+    def _wait(self, first) -> None:
+        """Close a recorded request on the card: its last event, and
+        ``engine.wait`` from the previous recorded request's last event to
+        ``first``, where both lie in one recording stretch."""
+        last = torch.cuda.Event(enable_timing=True)
+        last.record()
+        tail, self._tail = self._tail, (last, profiling.STORE.epoch)
+        if tail is not None and tail[1] == profiling.STORE.epoch:
+            profiling.device_span("engine.wait", tail[0], first)
+        profiling.poll()
 
     def predict(self, images) -> np.ndarray:
         """float32 logits for NHWC float32 images; any leading batch size,
@@ -275,12 +324,10 @@ class InferenceEngine:
         timed by CUDA events; on the CPU eager calls on the host's clock.
         Under a mesh each rank times its share and every rank returns the
         global batch over the slowest rank's time."""
-        from cnns_slfp_quantization_tpu_torch.utils.profiling import (
-            scan_throughput)
-
         x = torch.zeros(self.input_shape, dtype=torch.float32,
                         device=self.device)
-        ips = scan_throughput(self._dispatch, x, steps=iters, graph=False)
+        ips = profiling.scan_throughput(self._dispatch, x, steps=iters,
+                                        graph=False)
         if self.mesh is None:
             return ips
         return comm.global_rate(self.input_shape[0], ips, self.batch_size,

@@ -20,6 +20,11 @@ import torch
 
 from cnns_slfp_quantization_tpu_torch.ops.backend import exact_f32
 from cnns_slfp_quantization_tpu_torch.ops.layers import Dropout
+from cnns_slfp_quantization_tpu_torch.utils import profiling
+
+# a train step's phases, in stream order: forward and loss; zero_grad and
+# backward; the optimizer's step
+PHASES = ("train.forward", "train.backward", "train.optimizer")
 
 
 class TrainState:
@@ -56,24 +61,48 @@ def make_train_step(model: torch.nn.Module,
     """``step(state, images, labels, generator=None) -> metrics``: one
     train-mode forward, CE, backward and optimizer step; ``metrics`` holds
     the ``loss`` and ``accuracy`` tensors (read them to synchronise).
-    ``generator`` draws the dropout masks where the model has dropout."""
+    ``generator`` draws the dropout masks where the model has dropout.
+
+    While spans record (``utils.profiling.on``) the step records
+    ``train.step`` around its phases :data:`PHASES`: host spans on the CPU,
+    device spans between CUDA events on the card.  Those events are the
+    step's own (``step.phases``), recorded at every call under a CUDA
+    graph's capture, so that each replay of the graph times its phases
+    (``GraphedTrainStep``)."""
     drops = [m for m in model.modules() if isinstance(m, Dropout)] \
         if has_dropout else []
+    phases = profiling.StepPhases(PHASES)
 
-    def step(state: TrainState, images, labels, generator=None):
+    def run(state, images, labels, generator, mark):
         for m in drops:
             m.generator = generator
         model.train()
         with exact_f32():
+            if mark:
+                mark(0)
             logits = model(images)
             loss = cross_entropy(logits, labels)
+            if mark:
+                mark(1)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            if mark:
+                mark(2)
             optimizer.step()
+            if mark:
+                mark(3)
         state.step += 1
         acc = (torch.argmax(logits.detach(), -1) == labels).float().mean()
         return {"loss": loss.detach(), "accuracy": acc}
 
+    def step(state: TrainState, images, labels, generator=None):
+        mark = phases.marker(images.is_cuda)
+        if mark is None or not mark.step_span:
+            return run(state, images, labels, generator, mark)
+        with profiling.span("train.step"):
+            return run(state, images, labels, generator, mark)
+
+    step.phases = phases
     return step
 
 
@@ -89,7 +118,12 @@ class GraphedTrainStep:
     counters, ``state.step`` and ``generator`` go back in place before the
     capture, so that the replays continue from the state the caller gave,
     bit for bit as eager steps would.  ``launches``: the hand kernels'
-    launches of one replay.
+    launches of one replay.  While spans record (``utils.profiling.on``) a
+    call records ``train.step`` with its children ``train.copy_in``,
+    ``train.ready`` and ``train.replay``, and the replay's device phases
+    (the step's ``phases``), read at a later recorded call if the device
+    has passed them (a replay still running then is not read: the next one
+    records its events over) or when the spans are read.
 
     Dropout draws from ``generator``, registered with the graph: each
     replay advances it as an eager step drawing from it would, so replay
@@ -123,6 +157,7 @@ class GraphedTrainStep:
                 "dropout step drawing from its own generator cannot be "
                 "captured; time it eagerly (graph=False)")
         self.state = state
+        self.phases = getattr(train_step, "phases", None)
         self.images, self.labels = images.clone(), labels.clone()
         saved = _snapshot(state, generator)
         self.graph, self.metrics, self.launches = capture(
@@ -132,12 +167,21 @@ class GraphedTrainStep:
         state.step = saved["step"]      # the capture ran no step
 
     def __call__(self, images, labels) -> dict:
-        self.images.copy_(images)
-        self.labels.copy_(labels)
-        self.state.optimizer.ready()
-        self.graph.replay()
-        self.state.optimizer.count += 1
-        self.state.step += 1
+        rec = profiling.on()
+        with profiling.span_if(rec, "train.step"):
+            if rec:
+                profiling.poll()    # the last replay's phases, if passed
+            with profiling.span_if(rec, "train.copy_in"):
+                self.images.copy_(images)
+                self.labels.copy_(labels)
+            with profiling.span_if(rec, "train.ready"):
+                self.state.optimizer.ready()
+            with profiling.span_if(rec, "train.replay"):
+                self.graph.replay()
+            if rec and self.phases is not None:
+                self.phases.pend()
+            self.state.optimizer.count += 1
+            self.state.step += 1
         return self.metrics
 
 

@@ -1,10 +1,17 @@
 """Device timing with CUDA events and torch.profiler (counterpart of the
-JAX ``utils/profiling.py``).
+JAX ``utils/profiling.py``), and the program's own spans and counters.
 
 - :class:`StepTimer`: wall-clock seconds per item with percentile
   summaries, JAX's keys.
+- :func:`span`, :func:`count`, :func:`spans`, :func:`counters`,
+  :func:`reset`: spans and counters kept in host memory (:class:`SpanStore`),
+  stamped on torch.profiler's clock.  Set-up spans (an engine's build, a
+  graph's capture, the kernels' build) always record; the spans of each
+  request or step record only while a torch.profiler session records or
+  inside :func:`recording`, and cost one flag read otherwise.
 - :func:`trace`: a context manager around ``torch.profiler`` that writes a
-  Chrome / TensorBoard trace for offline analysis.
+  Chrome / TensorBoard trace for offline analysis, with the program's spans
+  of its session merged in.
 
 Every number here is measured on the card: a function given CPU work, or
 run where there is no card, raises instead of timing the host.  The two
@@ -19,13 +26,21 @@ not set the pace, timed by CUDA events.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import json
+import os
+import pathlib
 import re
+import socket
 import statistics
+import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 
 class StepTimer:
@@ -57,20 +72,413 @@ class StepTimer:
         }
 
 
+# ------------------------------------------------------------------ spans
+
+RING = 4096        # spans kept of each name (count, total and max cover all)
+
+clock_ns = time.time_ns
+"""The spans' clock: torch.profiler's own, on which a session's
+``kineto_results.trace_start_ns()`` lies and from which its records'
+``time_range`` (microseconds after that start) are counted; so program
+spans and profiler records share one axis.  Unix time in nanoseconds, for
+host records and, on the H100, for the device's."""
+
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+class Span(NamedTuple):
+    """A finished span.  ``start_ns`` / ``end_ns`` on :data:`clock_ns`;
+    ``parent``: the name of the span it ran inside (None at the top);
+    ``call``: the id every span of one request, step or build shares;
+    ``self_ns``: its length less the part its child spans cover.  A
+    ``device`` span was timed between two CUDA events: its length is the
+    device's, and it is placed at the host time it was registered."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[str]
+    call: int
+    self_ns: int
+    device: bool = False
+
+    @property
+    def ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+
+class SpanStats:
+    """The spans of one name: how many, their total and longest length in
+    ns, and the last ``RING`` of them (``samples``)."""
+
+    __slots__ = ("count", "total_ns", "max_ns", "samples")
+
+    def __init__(self, ring: int = RING):
+        self.count = self.total_ns = self.max_ns = 0
+        self.samples = collections.deque(maxlen=ring)
+
+    def add(self, s: tuple, ns: int) -> None:
+        self.count += 1
+        self.total_ns += ns
+        if ns > self.max_ns:
+            self.max_ns = ns
+        self.samples.append(s)
+
+    @property
+    def mean_ns(self) -> Optional[float]:
+        return self.total_ns / self.count if self.count else None
+
+
+class SpanStore:
+    """Spans and counters in host memory, bounded: per name a count, a
+    total, a maximum and the last ``ring`` spans; at most ``ring`` device
+    spans awaiting their events.  Thread-safe; each thread nests its own
+    spans."""
+
+    def __init__(self, ring: int = RING):
+        self.ring = ring
+        self.forced = 0          # depth of recording()
+        # bumped where a recording stretch starts (recording(), trace(),
+        # reset()): a device span between two requests needs both in one
+        self.epoch = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        self._stats: dict[str, SpanStats] = {}
+        self._counters: dict[str, int] = {}
+        # key -> (names, events, anchor ns, parent, call), oldest first
+        self._pending: dict = {}
+
+    def _stack(self) -> list:
+        try:
+            return self._local.stack
+        except AttributeError:
+            stack = self._local.stack = []
+            return stack
+
+    def _top(self):
+        """(the open span's name, its call id), or a new call id."""
+        stack = self._stack()
+        if stack:
+            return stack[-1][0], stack[-1][3]
+        return None, next(self._ids)
+
+    def _add(self, name: str, start: int, end: int, parent, call: int,
+             self_ns: int, device: bool = False) -> None:
+        # a plain tuple per span (a Span on read): the recording path is
+        # the hot one
+        lock = self._lock
+        lock.acquire()
+        try:
+            stats = self._stats.get(name)
+            if stats is None:
+                stats = self._stats[name] = SpanStats(self.ring)
+            stats.add((name, start, end, parent, call, self_ns, device),
+                      end - start)
+        finally:
+            lock.release()
+
+    def open(self, name: str) -> list:
+        """Start a span: the frame to give :meth:`close`."""
+        stack = self._stack()
+        # name, start, the children's ns, call id
+        frame = [name, clock_ns(), 0,
+                 stack[-1][3] if stack else next(self._ids)]
+        stack.append(frame)
+        return frame
+
+    def close(self, frame: list) -> None:
+        end = clock_ns()
+        stack = self._stack()
+        if stack[-1] is frame:
+            stack.pop()
+        else:       # by identity: two frames may hold equal values
+            del stack[next(i for i in range(len(stack) - 1, -1, -1)
+                           if stack[i] is frame)]
+        self.host_span(frame[0], frame[1], end, frame[2], call=frame[3])
+
+    def host_span(self, name: str, start: int, end: int, children: int = 0,
+                  call: Optional[int] = None) -> None:
+        """Record a host span that ran from ``start`` to ``end`` inside the
+        span now open (its parent)."""
+        stack = self._stack()
+        ns = end - start
+        if stack:
+            parent = stack[-1]
+            parent[2] += ns
+            self._add(name, start, end, parent[0],
+                      parent[3] if call is None else call, ns - children)
+        else:
+            self._add(name, start, end, None,
+                      next(self._ids) if call is None else call,
+                      ns - children)
+
+    def device(self, names, events, key=None) -> None:
+        """Register the device spans ``names[i]``, from ``events[i]`` to
+        ``events[i + 1]`` (recorded already, in stream order), inside the
+        span now open; resolved by :meth:`poll`.  An unresolved earlier
+        registration under the same ``key`` is dropped: its events were
+        recorded again."""
+        parent, call = self._top()
+        item = (tuple(names), tuple(events), clock_ns(), parent, call)
+        key = object() if key is None else key
+        with self._lock:
+            self._pending.pop(key, None)
+            self._pending[key] = item
+            while len(self._pending) > self.ring:
+                del self._pending[next(iter(self._pending))]
+
+    def poll(self, wait: bool = False) -> None:
+        """Record the registered device spans whose last event the device
+        has passed (``Event.query``, no synchronise); with ``wait``, all of
+        them, synchronising on each."""
+        with self._lock:
+            items = list(self._pending.items())
+        for key, item in items:
+            names, events, anchor, parent, call = item
+            if wait:
+                events[-1].synchronize()
+            elif not events[-1].query():
+                continue
+            with self._lock:
+                if self._pending.get(key) is not item:
+                    continue
+                del self._pending[key]
+            start = anchor
+            for name, a, b in zip(names, events, events[1:]):
+                ns = round(a.elapsed_time(b) * 1e6)
+                self._add(name, start, start + ns, parent, call, ns, True)
+                start += ns
+
+    def count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + n
+
+    def stats(self, name: str) -> SpanStats:
+        """A copy of ``name``'s spans, the device spans registered so far
+        resolved first."""
+        self.poll(wait=True)
+        out = SpanStats(self.ring)
+        with self._lock:
+            got = self._stats.get(name)
+            if got is not None:
+                out.count, out.total_ns, out.max_ns = (
+                    got.count, got.total_ns, got.max_ns)
+                out.samples.extend(map(Span._make, got.samples))
+        return out
+
+    def since(self, start_ns: int) -> list:
+        """Every kept span that started at ``start_ns`` or later, device
+        spans resolved first."""
+        self.poll(wait=True)
+        with self._lock:
+            return sorted((Span._make(s) for st in self._stats.values()
+                           for s in st.samples if s[1] >= start_ns),
+                          key=lambda s: s.start_ns)
+
+    def counters(self) -> dict:
+        with self._lock:
+            return dict(self._counters)
+
+    def reset(self) -> None:
+        with self._lock:
+            self.epoch += 1
+            self._stats.clear()
+            self._counters.clear()
+            self._pending.clear()
+
+
+STORE = SpanStore()
+"""The process's spans and counters."""
+
+
+def on() -> bool:
+    """Whether the spans of each request or step record: inside
+    :func:`recording`, or while a torch.profiler session records."""
+    return STORE.forced > 0 or _profiler_enabled()
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the spans of each request and step inside the block, without
+    a profiler."""
+    with STORE._lock:
+        STORE.forced += 1
+        STORE.epoch += 1
+    try:
+        yield STORE
+    finally:
+        with STORE._lock:
+            STORE.forced -= 1
+
+
+class span:
+    """``with span(name):`` records a span of the enclosed block, a child of
+    the span open around it.  It records whenever it runs: a per-call path
+    takes :func:`span_if` instead."""
+
+    __slots__ = ("name", "_frame")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._frame = STORE.open(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        STORE.close(self._frame)
+        return False
+
+
+NULL = contextlib.nullcontext()
+
+
+def span_if(rec: bool, name: str):
+    """``span(name)`` where ``rec`` (the call's one read of :func:`on`),
+    else a shared context that does nothing: a per-call path's span."""
+    return span(name) if rec else NULL
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    STORE.count(name, n)
+
+
+def device_span(name: str, start, end) -> None:
+    """The device span ``name`` between two recorded timing CUDA events,
+    inside the span now open; resolved without a synchronise
+    (:func:`poll`), or when the store is read."""
+    STORE.device((name,), (start, end))
+
+
+def poll() -> None:
+    """Record the device spans whose events the device has passed."""
+    STORE.poll()
+
+
+def spans(name: str) -> SpanStats:
+    """The spans of ``name`` recorded so far (count 0 where none)."""
+    return STORE.stats(name)
+
+
+def counters() -> dict:
+    return STORE.counters()
+
+
+def reset() -> None:
+    """Forget every span, counter and unresolved device span."""
+    STORE.reset()
+
+
+class StepPhases:
+    """The marks between the phases ``names`` of a step: ``mark(i)`` at the
+    start of phase i and ``mark(len(names))`` after the last.  On the card
+    they record timing CUDA events, made once with ``external=True`` so that
+    a CUDA graph's capture keeps them as event-record nodes and each replay
+    times its own phases (:meth:`pend` registers a replay's); an eager step
+    on the card records them while :func:`on` and registers them itself.
+    On the CPU they stamp host spans while :func:`on`."""
+
+    def __init__(self, names):
+        self.names = tuple(names)
+        self.events = None
+
+    def marker(self, cuda: bool):
+        """The ``mark`` of one step, or None where nothing is timed
+        (recording off and no capture running).  ``mark.step_span``: the
+        step records its own span around its phases."""
+        if cuda and torch.cuda.is_current_stream_capturing():
+            return _EventMarks(self, False)
+        if not on():
+            return None
+        return _EventMarks(self, True) if cuda else _HostMarks(self.names)
+
+    def pend(self) -> None:
+        """Register the device spans of the replay just enqueued."""
+        if self.events is not None:
+            STORE.device(self.names, self.events, key=self)
+
+
+class _EventMarks:
+    def __init__(self, phases: StepPhases, eager: bool):
+        self.phases, self.step_span = phases, eager
+        if phases.events is None:
+            phases.events = [torch.cuda.Event(enable_timing=True,
+                                              external=True)
+                             for _ in range(len(phases.names) + 1)]
+
+    def __call__(self, i: int) -> None:
+        if i == 0 and self.step_span:
+            STORE.poll()         # the last step's, before it is recorded over
+        self.phases.events[i].record()
+        if i == len(self.phases.names) and self.step_span:
+            self.phases.pend()
+
+
+class _HostMarks:
+    step_span = True
+
+    def __init__(self, names):
+        self.names, self.last = names, None
+
+    def __call__(self, i: int) -> None:
+        now = clock_ns()
+        if i:
+            STORE.host_span(self.names[i - 1], self.last, now)
+        self.last = now
+
+
 @contextlib.contextmanager
 def trace(log_dir):
     """torch.profiler around the enclosed block, written as a Chrome /
-    TensorBoard trace (``*.pt.trace.json``) under ``log_dir`` when the
-    block ends.  Activities: the CPU, and CUDA where a card is present."""
-    import torch
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
+    TensorBoard trace (``<host>_<pid>.<ns>.pt.trace.json``) under
+    ``log_dir`` when the block ends, with the program's spans of the
+    session merged in on the trace's own time axis (host spans on one row,
+    device spans on another).  Activities: the CPU, and CUDA where a card
+    is present."""
+    from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+    start = clock_ns()
+    with STORE._lock:
+        STORE.epoch += 1
+
+    def ready(prof):
+        out = pathlib.Path(log_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / (f"{socket.gethostname()}_{os.getpid()}."
+                      f"{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(str(path))
+        merge_spans(path, STORE.since(start))
+
+    with profile(activities=activities, on_trace_ready=ready):
         yield log_dir
+
+
+SPAN_ROWS = {False: ("program spans", 1 << 30),
+             True: ("program device spans (placed at registration)",
+                    (1 << 30) + 1)}
+
+
+def merge_spans(path, kept) -> None:
+    """Add the spans ``kept`` to the Chrome trace at ``path``, on its time
+    axis: microseconds after the file's ``baseTimeNanoseconds``."""
+    path = pathlib.Path(path)
+    doc = json.loads(path.read_text())
+    base = doc.get("baseTimeNanoseconds", 0)
+    events = doc.setdefault("traceEvents", [])
+    pid = os.getpid()
+    for label, tid in SPAN_ROWS.values():
+        events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                       "tid": tid, "args": {"name": label}})
+    for s in kept:
+        events.append({"ph": "X", "cat": "program_span", "name": s.name,
+                       "pid": pid, "tid": SPAN_ROWS[s.device][1],
+                       "ts": (s.start_ns - base) / 1e3, "dur": s.ns / 1e3,
+                       "args": {"call": s.call, "parent": s.parent,
+                                "self_us": s.self_ns / 1e3}})
+    path.write_text(json.dumps(doc))
 
 
 def _require_cuda():
@@ -166,25 +574,29 @@ def capture(fn: Callable[[], object], device, before=None, generator=None):
     (the graph, ``fn``'s output tensors from the capture, which each
     replay overwrites, the hand kernels' launches of one replay: the
     wrappers count a captured launch once, a replay runs it without
-    Python)."""
-    import torch
-
+    Python).  Recorded as the span ``graph.capture`` (the eager call and
+    the capture; a kernel library first loaded in the eager call records
+    its ``kernels.load``, nvcc's build included, inside it) and the counter
+    ``graph.captures``; a step's :class:`StepPhases` record their events
+    in the capture."""
     from cnns_slfp_quantization_tpu_torch import kernels
 
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream(device).wait_stream(side)
-    if before is not None:
-        before()
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
-    counts = kernels.launches()
-    with torch.cuda.graph(graph):
-        out = fn()
-    after = kernels.launches()
+    with span("graph.capture"):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        if before is not None:
+            before()
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        counts = kernels.launches()
+        with torch.cuda.graph(graph):
+            out = fn()
+        after = kernels.launches()
+    count("graph.captures")
     return graph, out, {k: after[k] - counts[k] for k in after}
 
 
@@ -222,12 +634,11 @@ class GraphedForward:
     """``forward`` captured once in a CUDA graph on ``x``'s shape, under
     ``torch.inference_mode`` (:func:`capture`); each call copies its input
     into the graph's and replays it, returning the graph's output tensor
-    (overwritten by the next call).  ``launches``: the hand kernels'
-    launches of one replay."""
+    (overwritten by the next call), and while spans record (:func:`on`)
+    records the two as ``<spans>.copy_in`` and ``<spans>.replay``.
+    ``launches``: the hand kernels' launches of one replay."""
 
-    def __init__(self, forward: Callable, x):
-        import torch
-
+    def __init__(self, forward: Callable, x, spans: str = "graph"):
         if not x.is_cuda:
             raise ValueError("a CUDA graph needs the input on the card")
         self.x = x.clone()
@@ -237,10 +648,14 @@ class GraphedForward:
                 return forward(self.x)
 
         self.graph, self.out, self.launches = capture(run, x.device)
+        self.spans = (f"{spans}.copy_in", f"{spans}.replay")
 
     def __call__(self, x):
-        self.x.copy_(x)
-        self.graph.replay()
+        rec = on()
+        with span_if(rec, self.spans[0]):
+            self.x.copy_(x)
+        with span_if(rec, self.spans[1]):
+            self.graph.replay()
         return self.out
 
 
@@ -579,42 +994,3 @@ def kernel_class(name: str) -> str:
         if any(k in name for k in keys):
             return label
     return "elementwise"
-
-
-def phase_profile(phases, calls: int = 3, top: int = 12) -> dict:
-    """Where a step's device time goes: ``phases`` is a list of (label, fn)
-    run in turn per call.  CUDA events between the phases give each
-    phase's span on the device (its kernels and the gaps between them, in
-    stream order); torch.profiler over the same calls, after a lead-in
-    call and a marker kernel (:func:`marked_trace`), gives the kernel time
-    by class (:func:`kernel_class`) and the ``top`` kernels.  Returns
-    {"wall": ms, "phases": {label: ms}, "classes": {class: ms}, "top":
-    [(name, ms, launches)]}, all per call."""
-    torch = _require_cuda()
-
-    def run(marks=None):
-        for i, (_, fn) in enumerate(phases):
-            if marks is not None:
-                marks[i].record()
-            fn()
-        if marks is not None:
-            marks[-1].record()
-
-    run()
-    torch.cuda.synchronize()
-    marks = [[torch.cuda.Event(enable_timing=True)
-              for _ in range(len(phases) + 1)] for _ in range(calls)]
-    with marked_trace(run) as kept:
-        for m in marks:
-            run(m)
-    out = {"wall": sum(m[0].elapsed_time(m[-1]) for m in marks) / calls,
-           "phases": {label: sum(m[i].elapsed_time(m[i + 1])
-                                 for m in marks) / calls
-                      for i, (label, _) in enumerate(phases)},
-           "classes": {}}
-    evs = by_name(kept, calls)
-    for key, ms, _ in evs:
-        c = kernel_class(key)
-        out["classes"][c] = out["classes"].get(c, 0.0) + ms
-    out["top"] = evs[:top]
-    return out

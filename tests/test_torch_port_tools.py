@@ -363,9 +363,9 @@ def _ev(name, start, us=1.0):
 
 
 def test_traces_count_only_what_follows_the_last_marker():
-    """``print_forward_profile``, ``phase_profile``, ``busy_ms`` and
-    ``kernel_profile`` read a trace from its marker kernel on (a lead-in
-    call and the marker go first): records before it, however ordered,
+    """``print_forward_profile``, ``busy_ms`` and ``kernel_profile`` read a
+    trace from its marker kernel on (a lead-in call and the marker go
+    first): records before it, however ordered,
     are dropped; a trace without it raises."""
     evs = [_ev("k_after", 50, 2.0), _ev("lead_in", 5), _ev(
         "void spin_kernel(long)", 10), _ev("k_first", 20, 3.0),
