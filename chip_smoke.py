@@ -55,7 +55,13 @@
    recorded every kernel), with the medians of 20 runs of 5 back-to-back
    calls between CUDA events printed beside for K1-K5 (events around
    kernels of a few microseconds time the host), except K6's and its
-   route's, which are event times.
+   route's, which are event times.  K7 (QSGD's update) must be bit-equal
+   to its plain version on ResNet-50's 161 parameter tensors (bin-edge
+   weights, subnormal and -0.0 gradients) under DSGD at qbit 8, 7 and 32,
+   with nesterov and dampening, without momentum or weight decay, SSGD and
+   SGD, in two launches, its counts equal; it is timed as a CUDA graph of
+   its calls beside its bytes bound.  Every QAT step below launches K7
+   once (83 or 52 parameter tensors).
 3. Paths, each with the launch counts reset just before it and read just
    after it, over requests of 64, 64 and 17 images (one of 64 in the zoo).
    The engine serves through one CUDA graph: the path's first request
@@ -890,6 +896,7 @@ def main() -> int:
     from cnns_slfp_quantization_tpu_torch.kernels import depthwise as k5
     from cnns_slfp_quantization_tpu_torch.kernels import epilogue as k3
     from cnns_slfp_quantization_tpu_torch.kernels import fused_matmul as k4
+    from cnns_slfp_quantization_tpu_torch.kernels import optim as k7
     from cnns_slfp_quantization_tpu_torch.kernels import qmm as k2
     from cnns_slfp_quantization_tpu_torch.kernels import quantize as k1
     from cnns_slfp_quantization_tpu_torch.models import (
@@ -919,10 +926,11 @@ def main() -> int:
         F32_OPS,
         K1_OPS,
         K3_OPS,
+        K7_OPS,
         bound_ms,
     )
     from cnns_slfp_quantization_tpu_torch.utils.profiling import (
-        kernel_ms, median_ms, print_forward_profile, throughput)
+        graph_ms, kernel_ms, median_ms, print_forward_profile, throughput)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -962,6 +970,10 @@ def main() -> int:
         "k6": Row("bottleneck_chain", f"{PKG}/csrc/chain.cu",
                   "cnns_slfp_quantization_tpu/kernels/chain.py:87",
                   "resnet_chain"),
+        "k7": Row("qsgd_update", f"{PKG}/csrc/optim.cu",
+                  "none: the JAX package leaves the update to XLA's fusion "
+                  "(cnns_slfp_quantization_tpu/train/optimizers.py)",
+                  "resnet_qat"),
     }
 
     def same_bits(a, b):
@@ -1689,6 +1701,84 @@ def main() -> int:
         else:
             raise AssertionError("K6 took stage 0's shape")
 
+    # ------------------------------------------------------------------ K7
+    @phase("K7 qsgd_update")
+    def k7_phase():
+        """QSGD's update over ResNet-50's 161 parameter tensors (the QAT
+        cell's step): bit-equal to the plain version under every rule, the
+        counts equal, then timed under DSGD at qbit 8 (momentum 0.9, weight
+        decay 5e-4, as the QAT step runs it): the kernel as a CUDA graph of
+        10 calls between events, the plain version between events, the
+        bound (20 bytes an element: p, g and buf read, p and buf
+        written)."""
+        shapes = [tuple(p.shape) for p in models.create_model(
+            "resnet", 8, compute_dtype=torch.bfloat16,
+            image_size=224).parameters()]
+        n = sum(int(np.prod(s_)) for s_ in shapes)
+        rng = np.random.default_rng(7)
+        host = [[(rng.standard_normal(s_) * sd).astype(np.float32)
+                 for s_ in shapes] for sd in (0.05, 0.02, 0.02)]
+        for arr in host[0][::7]:             # some weights on a bin edge
+            arr.flat[::3] = sfp._LOG_BIN_BOUNDS[
+                np.arange(arr.flat[::3].size) % 16] * 0.25
+        for arr in host[1][::11]:            # subnormal and -0.0 gradients
+            arr.flat[::5] = np.float32(1e-40)
+            arr.flat[1::5] = np.float32(-0.0)
+        neg_lr = torch.tensor(np.float32(-0.01), device=dev)
+
+        def fresh(with_buf=True):
+            ps_, gs_, bs_ = ([torch.from_numpy(a).to(dev) for a in h]
+                             for h in host)
+            return ps_, gs_, (bs_ if with_buf else None)
+        cases = [("dsgd", 8, 0.9, 0.0, False, 5e-4, True),
+                 ("dsgd", 7, 0.9, 0.0, False, 5e-4, True),
+                 ("dsgd", 32, 0.9, 0.0, False, 5e-4, True),
+                 ("dsgd", 8, 0.9, 0.1, True, 5e-4, True),
+                 ("dsgd", 8, 0.0, 0.0, False, 0.0, False),
+                 ("ssgd", 8, 0.9, 0.0, False, 5e-4, False),
+                 ("sgd", 32, 0.9, 0.1, True, 5e-4, False)]
+        for rule, qbit, m, damp, nest, wd, stats in cases:
+            kw = dict(rule=rule, qbit=qbit, weight_decay=wd, momentum=m,
+                      dampening=damp, nesterov=nest, tol=1e-4, stats=stats)
+            out = []
+            for fn in (k7.qsgd_update, k7.qsgd_update_plain):
+                ps_, gs_, bs_ = fresh(bool(m))
+                before = k7.qsgd_update.launches
+                counts = fn(ps_, gs_, bs_, neg_lr, **kw)
+                torch.cuda.synchronize()
+                out.append((ps_ + (bs_ or []), counts,
+                            k7.qsgd_update.launches - before))
+            (got, cg, ng), (want, cw, _) = out
+            assert ng == 2, ng
+            for a, b in zip(got, want):
+                assert same_bits(a, b), (rule, qbit, m, damp, nest, wd)
+            assert (cg is None and cw is None) or torch.equal(cg, cw)
+            print(f"  K7 {rule} qbit {qbit} momentum {m} dampening {damp} "
+                  f"nesterov {nest} wd {wd}: bit-equal to the plain version "
+                  f"on {len(shapes)} tensors ({n} elements), 2 launches"
+                  + (f", counts updated / stuck {cg.sum(0).tolist()}"
+                     if stats else ""), flush=True)
+        ps_, gs_, bs_ = fresh()
+        kw = dict(rule="dsgd", qbit=8, weight_decay=5e-4, momentum=0.9,
+                  dampening=0.0, nesterov=False, tol=1e-4)
+
+        def call():
+            k7.qsgd_update(ps_, gs_, bs_, neg_lr, **kw)
+        call()
+        ms = graph_ms(call, 10)
+        kms = kernel_ms(call)
+        pms = median_ms(lambda: k7.qsgd_update_plain(ps_, gs_, bs_, neg_lr,
+                                                     **kw), iters=5, inner=1)
+        nbytes = 20 * n
+        rows["k7"].add(1, ms, pms, nbytes, K7_OPS * n, F32_OPS)
+        rows["k7"].counted("resnet_qat", 2, 1)
+        bms, by = bound_ms(nbytes, K7_OPS * n, F32_OPS)
+        print(f"  K7 DSGD qbit 8 at ResNet-50's {len(shapes)} tensors: "
+              f"{ms:.4f} ms a step as a graph (profiler {kms:.4f}), "
+              f"{nbytes / ms / 1e6:.1f} GB/s; plain {pms:.3f}; bound "
+              f"{bms:.4f} ({by}); {bms / ms:.1%} of it ({card})",
+              flush=True)
+
     # ---------------------------------------------------------------- paths
     def cos(a, b):
         a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
@@ -1772,7 +1862,8 @@ def main() -> int:
         assert launched == want, (label, launched, want)
         for key, name in (("k1", "act_quantize"), ("k2", "qmm_fused"),
                           ("k3", "bn_epilogue"), ("k4", "fused_quant_matmul"),
-                          ("k5", "dw3x3"), ("k6", "bottleneck_chain")):
+                          ("k5", "dw3x3"), ("k6", "bottleneck_chain"),
+                          ("k7", "qsgd_update")):
             if name in launched:
                 rows[key].counted(path, launched[name], BUSY_CALLS)
         return idle
@@ -1909,7 +2000,8 @@ def main() -> int:
             (path, per_fwd, want)
         for key, name in (("k1", "act_quantize"), ("k2", "qmm_fused"),
                           ("k3", "bn_epilogue"), ("k4", "fused_quant_matmul"),
-                          ("k5", "dw3x3"), ("k6", "bottleneck_chain")):
+                          ("k5", "dw3x3"), ("k6", "bottleneck_chain"),
+                          ("k7", "qsgd_update")):
             # a kernel's row keeps the paths it was timed on (and its main
             # one); the counts of every path are asserted above
             if want.get(name) and (path in rows[key].paths
@@ -2381,7 +2473,9 @@ def main() -> int:
             if key[0] != "recip":
                 got[{"k1": "act_quantize", "k3": "bn_epilogue",
                      "k4": "fused_quant_matmul"}[key[0]]] += n
-        assert got == Counter({k: v for k, v in want.items() if v}), \
+        # the recorded kernels' (K7, the optimizer's, is counted apart)
+        assert got == Counter({k: v for k, v in want.items() if v and k in (
+            "act_quantize", "bn_epilogue", "fused_quant_matmul")}), \
             (path, dict(got), want)
         time_sites(path, seen)
         if path in copies:
@@ -2669,8 +2763,10 @@ def main() -> int:
     # K1 at every quantized layer's input (conv0, 13 depthwise, 13
     # pointwise, the FC); route B: K4 at the 13 pointwise convs and the FC,
     # K1 at the other 14 inputs and again in K4's backward
-    WANT_A = {"act_quantize": 28}
-    WANT_B = {"fused_quant_matmul": 14, "act_quantize": 28}
+    # and K7, one launch a step (83 parameter tensors)
+    WANT_F32 = {"qsgd_update": 1}
+    WANT_A = {"act_quantize": 28, **WANT_F32}
+    WANT_B = {"fused_quant_matmul": 14, "act_quantize": 28, **WANT_F32}
 
     def train_data(n, seed=7, classes=100):
         x, y = next(iter(SyntheticIterator(num_classes=classes, batch_size=n,
@@ -2876,9 +2972,11 @@ def main() -> int:
             counts = kernels.launches()
             printed = buf.getvalue()
             print("  " + printed.strip().replace("\n", "\n  "), flush=True)
-            # 8 steps of 256 and 8 eval batches of 128, 28 K1 each
+            # 8 steps of 256 and 8 eval batches of 128, 28 K1 each; K7
+            # once a step
             assert counts["act_quantize"] == 28 * 16, counts
-            assert sum(counts.values()) == counts["act_quantize"], counts
+            assert counts["qsgd_update"] == 8, counts
+            assert sum(counts.values()) == 28 * 16 + 8, counts
             ckpt = pathlib.Path(tmp) / "ckpt" / "cifar-100" / "mobilenet0_tmp"
             log = pathlib.Path(tmp) / "logs" / "cifar-100" / "run.jsonl"
             names = {json.loads(r)["name"]
@@ -3078,7 +3176,7 @@ def main() -> int:
         makes = {
             "route_A": (lambda: train_model(8, sc), WANT_A),
             "route_B": (lambda: train_model(8, sc, use_pallas=True), WANT_B),
-            "float32": (lambda: train_model(32, sc, cdt=None), {}),
+            "float32": (lambda: train_model(32, sc, cdt=None), WANT_F32),
         }
 
         def fresh(make):
@@ -3195,10 +3293,13 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, text, kernels.launches()
 
-    def only_k1(counts, n, label):
-        """``counts`` launched K1 n times and no other kernel."""
-        assert counts["act_quantize"] == n and sum(counts.values()) == n, \
-            (label, n, counts)
+    def only_k1(counts, n, label, steps=0):
+        """``counts`` launched K1 n times, K7 once a training step and no
+        other kernel."""
+        assert (counts["act_quantize"] == n
+                and counts["qsgd_update"] == steps
+                and sum(counts.values()) == n + steps), \
+            (label, n, steps, counts)
 
     # the largest relative difference allowed between a maximum the card
     # calibrates and the CPU's (weights and the image's maximum bit-equal):
@@ -3441,7 +3542,7 @@ def main() -> int:
         steps, evals = -(-n // 256), -(-1000 // 128)
         assert state.step == steps and len(accs) == 1, (n, state.step)
         assert "(1000 images)" in text
-        only_k1(counts, 28 * (steps + evals), "cifar100_train_eval")
+        only_k1(counts, 28 * (steps + evals), "cifar100_train_eval", steps)
         print(f"  the 6% subset: {n} of 2560 images, {steps} step(s); "
               f"launches {counts}", flush=True)
 
@@ -3748,7 +3849,8 @@ def main() -> int:
             assert n == forwards * want.get(name, 0), (path, counts, want)
         for key, name in (("k1", "act_quantize"), ("k2", "qmm_fused"),
                           ("k3", "bn_epilogue"), ("k4", "fused_quant_matmul"),
-                          ("k5", "dw3x3"), ("k6", "bottleneck_chain")):
+                          ("k5", "dw3x3"), ("k6", "bottleneck_chain"),
+                          ("k7", "qsgd_update")):
             if want.get(name):
                 rows[key].counted(path, counts[name], forwards)
 
@@ -3991,8 +4093,10 @@ def main() -> int:
                 for shape in ((2, 1), (1, 2)):
                     total = sum(q[shape]["stats"].values())
                     assert 0 < total <= 3 * q["n_params"], q[shape]
-            mesh_counts(f"mesh2x1_qat_f32_rank{r}", qf[(2, 1)]["counts"], {})
-            mesh_counts(f"mesh1x2_qat_f32_rank{r}", qf[(1, 2)]["counts"], {})
+            mesh_counts(f"mesh2x1_qat_f32_rank{r}", qf[(2, 1)]["counts"],
+                        WANT_F32)
+            mesh_counts(f"mesh1x2_qat_f32_rank{r}", qf[(1, 2)]["counts"],
+                        WANT_F32)
             mesh_counts(f"mesh2x1_qat_b_rank{r}", qa[(2, 1)]["counts"],
                         WANT_B)
             mesh_counts(f"mesh1x2_qat_b_rank{r}", qa[(1, 2)]["counts"],
@@ -4028,6 +4132,7 @@ def main() -> int:
     k4_phase()
     k5_phase()
     k6_phase()
+    k7_phase()
     fused = slice_phase()
     ch = chain_phase(*fused) if fused is not None else None
     if fused is None:

@@ -1,6 +1,7 @@
 // Device math shared by the hand kernels (K1 quantize.cu, K2 qmm.cu, K3
-// epilogue.cu, and K4-K6): the SLFP<3,4> / SFP<3,3> activation quantizer in
-// the float32 bit domain and the fused affine epilogue.
+// epilogue.cu, K4-K6, and K7 optim.cu): the SLFP<3,4> / SFP<3,3> activation
+// quantizer in the float32 bit domain, the fused affine epilogue, and the
+// weight quantizers K7 applies.
 //
 // Bit-equal to the plain PyTorch versions (ops/sfp.py::act_bf16_bits and
 // slfp34_act_bits, kernels/epilogue.py::affine_f32) and through them to the
@@ -154,6 +155,93 @@ __device__ __forceinline__ uint16_t bf16_bits(float v) {
 
 __device__ __forceinline__ float bf16_to_float(uint16_t b) {
   return __uint_as_float(static_cast<uint32_t>(b) << 16);
+}
+
+// ---------------------------------------------------------------------------
+// Weight quantizers (ops/sfp.py::quantize_weight) in the float32 bit domain,
+// for the optimizer's kernel (optim.cu).  x is flushed first, as the plain
+// version's sign/magnitude split does; a NaN stays a NaN (any payload).
+
+// 23-bit mantissa field of float32(2**((i + 0.5)/16)), i = 0..15: the
+// bounds of SLFP<3,4>'s log bins (ops/sfp.py _LOG_BIN_BOUNDS).  They are
+// irrational, so comparing a mantissa field against them is exact.
+__constant__ int32_t kLogBinBound[16] = {
+    0x02CD87, 0x08980F, 0x0EA43A, 0x14F4F0, 0x1B8D3A, 0x227043,
+    0x29A15B, 0x3123F6, 0x38FBAF, 0x412C4D, 0x49B9BE, 0x52A81E,
+    0x5BFBB8, 0x65B907, 0x6FE4BA, 0x7A83B3};
+
+// Entry t of the 32-entry bin table that slfp34_weight_f32 reads: the
+// mantissas m of [t/32, (t+1)/32) (top 5 bits t) lie in bin lo or lo + 1,
+// where lo counts the bounds <= t/32 and the one bound that may lie inside
+// (bounds lie over 1/32 apart) is stored beside it, or (t + 1) << 18 when
+// none does: (lo << 24) | bound.
+__device__ __forceinline__ int32_t weight_bin_entry(int t) {
+  const int32_t start = t << 18;
+  int32_t lo = 0, bound = (t + 1) << 18;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int32_t b = kLogBinBound[i];
+    if (b <= start) lo = i + 1;
+    else if (b < bound) bound = b;
+  }
+  return (lo << 24) | bound;
+}
+
+// Entry i of the 17-entry value table: float32(2**(i/16)) less 1.0's bits,
+// i.e. the exponent carry (i = 16) and the mantissa field (p_table).
+__device__ __forceinline__ int32_t weight_bin_value(int i) {
+  return ((i >> 4) << 23) | p_table(i & 15);
+}
+
+__device__ __forceinline__ bool is_nan_bits(int32_t a) {
+  return a > 0x7F800000;
+}
+
+// SLFP<3,4> weight quantize (qbit 8): ±2**(e + round(16 log2 m)/16), the
+// pseudo-zero and 0.125 floors and the clamp; tab / val: the tables above
+// (in shared memory: the reads diverge)
+__device__ __forceinline__ float slfp34_weight_f32(float x, const int32_t* tab,
+                                                   const int32_t* val) {
+  const int32_t bits = __float_as_int(ftz(x));
+  const int32_t a = bits & 0x7FFFFFFF;
+  if (is_nan_bits(a)) return x;
+  int32_t out;
+  if (a == 0) {
+    out = 0;
+  } else if (a < kI32Lo) {
+    out = kI32PseudoZero;
+  } else if (a < kI32Eighth) {
+    out = kI32Eighth;
+  } else if (a > kI32ClampSlfp) {
+    out = kI32ClampSlfp;
+  } else {
+    const int32_t mant = a & 0x007FFFFF;
+    const int32_t e = tab[mant >> 18];
+    const int32_t bin = (e >> 24) + (mant >= (e & 0x00FFFFFF));
+    out = (a & 0x7F800000) + val[bin];
+  }
+  return __int_as_float(out | (bits & static_cast<int32_t>(0x80000000u)));
+}
+
+// SFP<3,3> weight quantize (qbit 7): the mantissa rounded to 3 bits, ties
+// to even, the floors and the clamp at 15 (>= 15, as the plain version)
+__device__ __forceinline__ float sfp33_weight_f32(float x) {
+  const int32_t bits = __float_as_int(ftz(x));
+  const int32_t a = bits & 0x7FFFFFFF;
+  if (is_nan_bits(a)) return x;
+  int32_t out;
+  if (a == 0) {
+    out = 0;
+  } else if (a < kI32Lo) {
+    out = kI32PseudoZero;
+  } else if (a < kI32Eighth) {
+    out = kI32Eighth;
+  } else if (a >= kI32ClampSfp33) {
+    out = kI32ClampSfp33;
+  } else {
+    out = (a + (0x7FFFF + ((a >> 20) & 1))) & ~0xFFFFF;
+  }
+  return __int_as_float(out | (bits & static_cast<int32_t>(0x80000000u)));
 }
 
 // uint8 SLFP<3,4> code -> bf16 bits: the exact float32 value

@@ -1,7 +1,8 @@
 """Hand kernels for Hopper (``csrc/*.cu``) with their plain PyTorch versions.
 
 K1 :mod:`.quantize`, K2 :mod:`.qmm`, K3 :mod:`.epilogue`, K4
-:mod:`.fused_matmul`, K5 :mod:`.depthwise`, K6 :mod:`.chain`.  A wrapper
+:mod:`.fused_matmul`, K5 :mod:`.depthwise`, K6 :mod:`.chain`, K7
+:mod:`.optim` (the optimizer's update).  A wrapper
 given CUDA tensors launches its kernel (or raises) and adds one to its
 ``launches`` count; given CPU tensors it runs the plain version and counts
 nothing.  Kernels build from source at first use (:mod:`._build`).
@@ -14,6 +15,7 @@ from cnns_slfp_quantization_tpu_torch.kernels import (
     depthwise,
     epilogue,
     fused_matmul,
+    optim,
     qmm,
     quantize,
 )
@@ -27,6 +29,7 @@ WRAPPERS = {
     "fused_quant_matmul": fused_matmul.fused_quant_matmul,
     "dw3x3": depthwise.dw3x3,
     "bottleneck_chain": chain.bottleneck_chain,
+    "qsgd_update": optim.qsgd_update,
 }
 
 

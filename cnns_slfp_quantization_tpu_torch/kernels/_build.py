@@ -31,7 +31,7 @@ from cnns_slfp_quantization_tpu_torch.utils import profiling
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("quantize", "qmm", "epilogue", "fused_matmul", "depthwise",
-           "chain")
+           "chain", "optim")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -71,6 +71,15 @@ SIGNATURES = {
         # stream
         "slfp_bottleneck_chain": (_P,) * 13 + (_I,) * 7 + (_F,) * 3
         + (_I, _P),
+    },
+    "optim": {
+        # the plan (a Plan struct in host memory), rule, qbit, nesterov,
+        # stats, stream
+        "qsgd_update": (_P, _I, _I, _I, _I, _P),
+        # counts, bytes, stream
+        "qsgd_zero_counts": (_P, _LL, _P),
+        # field index (-1: the size)
+        "qsgd_plan_layout": (_I,),
     },
 }
 

@@ -27,11 +27,19 @@ into the add that consumes it (one fused multiply-add, one rounding)
 wherever the product has no other use, and folds ``1 + (|v| + 1)`` into
 ``|v| + 2``.  In JAX's HLO that gives ``g + wd*p``, ``m*buf + g`` and ``p +
 d*(1 + scale)`` as FMAs, while ``p + d`` inside ``Q`` and ``|.|`` stays two
-roundings (its product ``d = -lr*buf`` has two uses).  The update here
-computes those FMAs with one rounding (``kernels/epilogue.py::affine_f32``)
-on all parameters at once, flattened into one vector per step, so that the
-card runs a few dozen element-wise kernels a step rather than that many per
-tensor.
+roundings (its product ``d = -lr*buf`` has two uses).  The update computes
+those FMAs with one rounding (``kernels/optim.py``), by one of two routes
+that give the same bits, chosen from what the step can observe:
+
+- the kernel (K7, ``kernels/optim.py::qsgd_update``): every QSGD whose
+  parameters lie on the card, one pass over the parameters where they lie;
+- the plain route (``qsgd_update_plain``: all parameters flattened into one
+  vector, the FMAs emulated in float64): CPU tensors, and a subclass that
+  overrides :meth:`QSGD._scale` (a rule the kernel does not compute).
+
+Each step counts the route it took, ``optim.kernel`` or ``optim.plain``
+(``utils.profiling`` counters): an eager step while spans record
+(``profiling.on()``), a capture always (set-up, as ``graph.captures``).
 """
 
 from __future__ import annotations
@@ -41,8 +49,8 @@ from typing import Callable, Iterable, Union
 import numpy as np
 import torch
 
-from cnns_slfp_quantization_tpu_torch.kernels.epilogue import affine_f32
-from cnns_slfp_quantization_tpu_torch.ops import sfp
+from cnns_slfp_quantization_tpu_torch.kernels import optim
+from cnns_slfp_quantization_tpu_torch.utils import profiling
 
 ScalarOrSchedule = Union[float, Callable[[int], float]]
 
@@ -98,8 +106,9 @@ class QSGD(_Counted, torch.optim.Optimizer):
                                       nesterov=nesterov))
         if len(self.param_groups) != 1:
             raise ValueError("QSGD takes one parameter group")
-        # (float32 bits, device) -> 0-d tensor; device -> the rate's tensor
-        self._consts, self._neg_lr = {}, {}
+        # (float32 bits, device) -> 0-d tensor; device -> the rate's tensor;
+        # device -> the kernel's per-tensor counts (track_stats)
+        self._consts, self._neg_lr, self._counts = {}, {}, {}
 
     def _const(self, v, device) -> torch.Tensor:
         """float32(v) as a 0-d tensor on ``device``, made once."""
@@ -134,31 +143,28 @@ class QSGD(_Counted, torch.optim.Optimizer):
     def _scale(self, p, d1):
         """The extra step's scale for the ordinary update ``d1`` of ``p``
         (JAX's ``rescale(p, delta1, quantize)``), and ``1 + scale`` as XLA
-        computes it."""
-        pd = p + d1
-        if self.rule == "dsgd":
-            moved = (sfp.quantize_weight(p, self.qbit)
-                     - sfp.quantize_weight(pd, self.qbit)).abs()
-            scale = torch.where(moved < np.float32(self.tol),
-                                self._const(2.0, p.device),
-                                self._const(0.0, p.device))
-            return scale, 1.0 + scale
-        return None, pd.abs() + self._const(2.0, p.device)      # ssgd
+        computes it.  A subclass that overrides it takes the plain route."""
+        return optim.rescale(p, d1, self.rule, self.qbit, self.tol,
+                             self._const)
 
-    def _count(self, flags, ps, sizes):
-        """The number of set ``flags`` (one per element of ``ps``,
-        flattened), each global parameter once."""
+    def _on_kernel(self, dev) -> bool:
+        """Whether a step on ``dev`` takes the kernel: parameters on the
+        card and QSGD's own rule (not a subclass's :meth:`_scale`)."""
+        return dev.type == "cuda" and type(self)._scale is QSGD._scale
+
+    def _count(self, per, ps):
+        """The sum of ``per`` (a count for each tensor of ``ps``), each
+        global parameter once."""
         if self.model_group is None:
-            return flags.sum()
+            return per.sum()
         from cnns_slfp_quantization_tpu_torch.parallel import comm
 
         all_ps = self.param_groups[0]["params"]
         sharded = {id(all_ps[i]) for i in self.sharded}
-        parts = [f.sum() for f in flags.split(sizes)]
-        mine = sum((c for c, t in zip(parts, ps) if id(t) in sharded),
-                   flags.new_zeros((), dtype=torch.int64))
-        rep = sum((c for c, t in zip(parts, ps) if id(t) not in sharded),
-                  flags.new_zeros((), dtype=torch.int64))
+        mask = torch.tensor([id(t) in sharded for t in ps],
+                            device=per.device)
+        mine = torch.where(mask, per, 0).sum()
+        rep = torch.where(mask, 0, per).sum()
         return comm.all_reduce_sum(mine, self.model_group) + rep
 
     @torch.no_grad()
@@ -177,43 +183,37 @@ class QSGD(_Counted, torch.optim.Optimizer):
                      and torch.cuda.is_current_stream_capturing())
         if not capturing:
             self.ready()
-        m, damp = group["momentum"], group["dampening"]
-        wd = group["weight_decay"]
-        p = torch.cat([t.reshape(-1) for t in ps])
-        g = torch.cat([t.grad.reshape(-1) for t in ps])
-        if wd:
-            g = affine_f32(p, self._const(wd, dev), g)
+        m = group["momentum"]
         if m:
             for t in ps:
                 if "momentum" not in self.state[t]:
                     self.state[t]["momentum"] = torch.zeros_like(t)
-            buf = torch.cat([self.state[t]["momentum"].reshape(-1)
-                             for t in ps])
-            gd = g if damp == 0 else g * self._const(1.0 - damp, dev)
-            buf = affine_f32(buf, self._const(m, dev), gd)
-            d = (affine_f32(buf, self._const(m, dev), g) if group["nesterov"]
-                 else buf)
+        bufs = [self.state[t]["momentum"] for t in ps] if m else None
+        kw = dict(rule=self.rule, qbit=self.qbit,
+                  weight_decay=group["weight_decay"], momentum=m,
+                  dampening=group["dampening"], nesterov=group["nesterov"],
+                  tol=self.tol,
+                  stats=self.stats is not None and self.rule == "dsgd")
+        grads = [t.grad for t in ps]
+        # the route's counter: a capture is set-up and always counts; an
+        # eager step counts while spans record
+        counted = capturing or profiling.on()
+        if self._on_kernel(dev):
+            if counted:
+                profiling.count("optim.kernel")
+            counts = optim.qsgd_update(ps, grads, bufs, self._neg_lr[dev],
+                                       counts=self._counts.get(dev), **kw)
+            if counts is not None:
+                self._counts[dev] = counts
         else:
-            d = g
-        neg_lr = self._neg_lr[dev]
-        if self.rule == "sgd":
-            # the multiply by 1 + 0.0 folds away: p + d*(-lr), one rounding
-            new = affine_f32(d, neg_lr, p)
-        else:
-            d1 = d * neg_lr
-            scale, factor = self._scale(p, d1)
-            new = affine_f32(d1, factor, p)
-        sizes = [t.numel() for t in ps]
-        if self.rule != "sgd" and self.stats is not None \
-                and scale is not None:
-            self.stats["updated"] += self._count(scale == 0.0, ps, sizes)
-            self.stats["stuck"] += self._count(scale == 2.0, ps, sizes)
-        torch._foreach_copy_(ps, [v.view_as(t) for v, t in
-                                  zip(new.split(sizes), ps)])
-        if m:
-            bufs = [self.state[t]["momentum"] for t in ps]
-            torch._foreach_copy_(bufs, [v.view_as(t) for v, t in
-                                        zip(buf.split(sizes), bufs)])
+            if counted:
+                profiling.count("optim.plain")
+            counts = optim.qsgd_update_plain(
+                ps, grads, bufs, self._neg_lr[dev], const=self._const,
+                scale=self._scale, **kw)
+        if counts is not None:
+            self.stats["updated"] += self._count(counts[:, 0], ps)
+            self.stats["stuck"] += self._count(counts[:, 1], ps)
         if not capturing:
             self.count += 1
         return loss

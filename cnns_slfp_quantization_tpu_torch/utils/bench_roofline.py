@@ -67,8 +67,9 @@ F32_OPS = 67e12                # float32 outside the tensor cores
 L2_BYTES = 50e6
 # integer/float operations per element of the elementwise kernels, counted
 # from csrc/slfp.cuh (quantize ~25, epilogue affine+residual+ReLU+quantize
-# ~35; K5's stencil 9 multiply-adds); all far below their bytes bounds
-K1_OPS, K3_OPS, DW_OPS = 25, 35, 18
+# ~35; K5's stencil 9 multiply-adds; K7's update, four fused multiply-adds
+# and two weight quantizes, ~60); all far below their bytes bounds
+K1_OPS, K3_OPS, DW_OPS, K7_OPS = 25, 35, 18, 60
 
 
 def bound_ms(nbytes, ops, peak):

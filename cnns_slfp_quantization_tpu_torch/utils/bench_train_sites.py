@@ -31,7 +31,11 @@ statistics), and its idle share is read from a replay's trace
 prod - opt_noq, ``fwd_weight_quantize`` = prod - fwd_nowq,
 ``fwd_act_quantize`` = fwd_nowq - fwd_none), the checks and each
 variant's hand-kernel launches in one eager step.  Prints the card's name
-and power limit first; ``--device cpu`` times the host.
+and power limit first; ``--device cpu`` times the host.  On the card
+``prod`` and ``opt_sgd`` update through K7 (``kernels/optim.py``) and
+``opt_noq``, a rule of its own, through the plain route: there
+``optimizer_2x_quantize`` prices K7 against the plain route, not the
+optimizer's quantizes alone.
 """
 
 from __future__ import annotations

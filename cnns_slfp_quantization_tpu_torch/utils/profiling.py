@@ -959,6 +959,7 @@ HAND_KERNELS = {
     "fused_quant_matmul": r"\bgemm_kernel<.*\bFusedEpi\b",
     "dw3x3": r"\bdw3x3_kernel<",
     "bottleneck_chain": r"\bchain_kernel<",
+    "qsgd_update": r"\bqsgd_update_kernel<",
 }
 
 # kernel class of each hand kernel's launches, by wrapper; split-K's second
@@ -966,7 +967,7 @@ HAND_KERNELS = {
 HAND_CLASSES = {
     "act_quantize": "K1", "slfp34_act_quantize": "K1", "qmm_fused": "K2",
     "bn_epilogue": "K3", "fused_quant_matmul": "K4", "dw3x3": "K5",
-    "bottleneck_chain": "K6",
+    "bottleneck_chain": "K6", "qsgd_update": "K7",
 }
 SPLITK_CLASSES = ((r"\bsplitk_reduce<.*\bQmmEpi\b", "K2"),
                   (r"\bsplitk_reduce<.*\bFusedEpi\b", "K4"))
@@ -981,7 +982,7 @@ LIBRARY_CLASSES = (
 
 
 def kernel_class(name: str) -> str:
-    """A device kernel's class by its trace name: its hand kernel (K1-K6,
+    """A device kernel's class by its trace name: its hand kernel (K1-K7,
     :data:`HAND_KERNELS`, split-K's second pass with its GEMM) before any
     library substring, else cuDNN, cuBLAS or elementwise."""
     for wrapper, pattern in HAND_KERNELS.items():

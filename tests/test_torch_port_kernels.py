@@ -74,6 +74,18 @@ def test_cuda_header_constants_match_python():
     table = [int(v, 16) for v in re.findall(
         r"(?:case \d+|default): return (0x[0-9A-Fa-f]+);", text)]
     assert table == tsfp._P_TABLE
+    # the weight quantizer's (K7): the exp2(i/16) fields it adds are the
+    # same table, and its log bin bounds are mantissa fields of bounds in
+    # [1, 2), over 1/32 apart (one at most in a 32nd of the mantissas)
+    assert table == [int(v.view(np.int32)) & 0x7FFFFF
+                     for v in tsfp._EXP2_16[:16]]
+    body = re.search(r"kLogBinBound\[16\] = \{([^}]*)\}", text).group(1)
+    bounds = [int(v, 16) for v in re.findall(r"0x[0-9A-Fa-f]+", body)]
+    assert bounds == [int(v.view(np.int32)) & 0x7FFFFF
+                      for v in tsfp._LOG_BIN_BOUNDS]
+    assert all(int(v.view(np.int32)) >> 23 == 127
+               for v in tsfp._LOG_BIN_BOUNDS)
+    assert min(np.diff(bounds)) > 1 << 18
 
 
 # ---------------------------------------------------------------------------

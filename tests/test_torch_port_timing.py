@@ -195,6 +195,8 @@ _ANON = "(anonymous namespace)::"
     (f"void {_ANON}dw3x3_kernel<true, false, 1>({_ANON}Args)", "dw3x3"),
     (f"void {_ANON}chain_kernel<true>(CUtensorMap_st, CUtensorMap_st)",
      "bottleneck_chain"),
+    (f"void {_ANON}qsgd_update_kernel<0, 8, false, true>({_ANON}Plan)",
+     "qsgd_update"),
     ("void cutlass::Kernel2<cutlass_80_tensorop_s1688gemm_64x64_16x6_tn_"
      "align4>(cutlass_80_tensorop_s1688gemm_64x64_16x6_tn_align4::Params)",
      None),
@@ -232,6 +234,8 @@ _HAND_NAMES = [
     (f"void {_ANON}dw3x3_kernel<true, false, 1>({_ANON}Args)", "K5"),
     (f"void {_ANON}chain_kernel<true>(CUtensorMap_st, CUtensorMap_st)",
      "K6"),
+    (f"void {_ANON}qsgd_update_kernel<2, 32, true, false>({_ANON}Plan)",
+     "K7"),
 ]
 
 
