@@ -126,6 +126,13 @@
      float-frozen module path of every net of the registry, and the packed
      one of CIFAR MobileNet, ``mobilenet_swish`` and
      ``shufflenetv2_swish``, shipped scales;
+   - ShuffleNet V2 1.0x in its published ImageNet form (224x224, 1000
+     classes), ``InferenceEngine("imgnet/shufflenetv2", qbit=8)``, shipped
+     scales, through its graph against its eager forward as above (K1 35,
+     K3 20 a forward; its stem K3 with ReLU and ``max_pool2d``), and its
+     five device phases (``shufflenet.stem``, ``.stage2``-``.stage4``,
+     ``.head``) read from recorded replays: each once a request, their sum
+     within the replay's device time;
    - the zoo, one request of 64 each: VGG16 and VGG16-GELU at 32x32
      (K4 3, K1 13), the ResNet-50 STL / Swish variants at 224x224 (K4 37,
      K1 17), packed with derived scales, and InceptionV3 (float32 only);
@@ -2750,6 +2757,51 @@ def main() -> int:
             torch.cuda.empty_cache()
             print(f"  {path}: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    @phase("engine graph: imgnet/shufflenetv2 (ShuffleNet V2 1.0x, "
+           "224x224) SLFP8 fused executor")
+    def shufflenet_imgnet_phase():
+        from cnns_slfp_quantization_tpu_torch.utils import profiling
+
+        t0 = time.perf_counter()
+        eng = InferenceEngine("imgnet/shufflenetv2", qbit=8, batch_size=B,
+                              seed=0)
+        assert eng.fused and eng.graphed and eng.image_size == 224
+        want = {"act_quantize": 35, "bn_epilogue": 20}
+        # every K1 / K3 site at this form's shapes (the stem's K3 with
+        # ReLU and raw output at 112x112, K1 at the units' 56 to 7) against
+        # its plain version, bit for bit
+        x = torch.from_numpy(requests[0][:B]).to(dev)
+        sites("shufflenetv2_imgnet_fused", lambda: eager_forward(eng, x),
+              want)
+        logits = serve(eng, "shufflenetv2_imgnet_fused", want)
+        against_cpu("imgnet/shufflenetv2", logits[0], requests[0], qbit=8)
+        # the phases a recorded replay registers, against its device time
+        profiling.reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profiling.recording():
+            for _ in range(3):
+                eng.forward(x).cpu()
+            start.record()
+            eng.forward(x)
+            end.record()
+            torch.cuda.synchronize()
+        got = {n: profiling.spans(n) for n in sfused.PHASES}
+        assert all(g.count == 4 for g in got.values()), \
+            {n: g.count for n, g in got.items()}
+        last = {n: g.samples[-1].ns / 1e6 for n, g in got.items()}
+        total, wall = sum(last.values()), start.elapsed_time(end)
+        assert 0 < total <= wall * 1.01, (last, wall)
+        print(f"  phases of one replay at batch {B} (ms): "
+              + ", ".join(f"{n.split('.')[1]} {v:.4f}"
+                          for n, v in last.items())
+              + f"; sum {total:.4f} of the request's {wall:.4f} ms on the "
+              f"device ({card}); {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        profiling.reset()
+        del eng
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- training
     from cnns_slfp_quantization_tpu_torch.cli import cifar100_train_eval
     from cnns_slfp_quantization_tpu_torch.data.synthetic import (
@@ -4159,6 +4211,7 @@ def main() -> int:
     resnet_q7_phase()
     zoo_phase()
     engine_graph_phase()
+    shufflenet_imgnet_phase()
     sc_train = train_b_phase()
     train_learn_phase()
     train_cli_phase()

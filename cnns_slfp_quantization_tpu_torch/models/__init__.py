@@ -7,7 +7,9 @@ cifar:  mobilenet, mobilenet_swish, shufflenetv2, shufflenetv2_swish,
 imgnet: mobilenetv1, resnet, alexnet, squeezenet, inceptionv3
 
 plus ``resnet_stl`` / ``resnet_swish`` (the activation-optimized ResNet-50
-variants) and the ``cifar/`` / ``imgnet/`` prefixed forms.
+variants), the ``cifar/`` / ``imgnet/`` prefixed forms, and one name the
+JAX registry does not have: ``imgnet/shufflenetv2``, ShuffleNet V2 1.0x in
+its published ImageNet form (224x224, 1000 classes).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ _MOBILENETS = ("mobilenet", "cifar/mobilenet", "mobilenet_swish",
 # checkpoint the reference loads (JAX models/__init__.py:63-64)
 _SHUFFLENETS = ("shufflenetv2", "shufflenetv2_swish", "cifar/shufflenetv2",
                 "cifar/shufflenetv2_swish")
+# the published ImageNet form, which the JAX registry does not have
+_SHUFFLENET_IMGNET = ("imgnet/shufflenetv2",)
 _VGGS = ("vgg16", "cifar/vgg16", "vgg16_gelu", "cifar/vgg16_gelu")
 _RESNETS = ("resnet", "resnet50", "imgnet/resnet")
 _RESNET_VARIANTS = ("resnet_stl", "resnet_swish", "imgnet/resnet_stl",
@@ -33,8 +37,8 @@ _SQUEEZENETS = ("squeezenet", "imgnet/squeezenet")
 _ALEXNETS = ("alexnet", "imgnet/alexnet")
 _INCEPTIONS = ("inceptionv3", "imgnet/inceptionv3")
 # every name create_model accepts
-NAMES = (_MOBILENETS + _SHUFFLENETS + _VGGS + _RESNETS + _RESNET_VARIANTS
-         + _SQUEEZENETS + _ALEXNETS + _INCEPTIONS)
+NAMES = (_MOBILENETS + _SHUFFLENETS + _SHUFFLENET_IMGNET + _VGGS + _RESNETS
+         + _RESNET_VARIANTS + _SQUEEZENETS + _ALEXNETS + _INCEPTIONS)
 
 
 def _resnet_variant_scales(name: str, act: str, qbit: int):
@@ -71,12 +75,12 @@ def create_model(name: str, qbit: int = 32, *,
                  generator: Optional[torch.Generator] = None):
     """Build a model by the reference CLI's ``--net`` name.  ``capture``
     (``"absmax"`` or ``"full"``) puts every quantized layer in that
-    calibration mode (``ops.layers.set_capture``).  ``ratio`` is
-    ShuffleNetV2's width plan (0.5, 1, 1.5 or 2; any other net raises on a
-    ratio other than 1).  ``image_size`` fixes AlexNet's fc1 width, which
-    flax infers from the first input (default: the dataset's
-    ``INPUT_SIZE``).  InceptionV3 is float32 only and takes no quantization
-    argument, as in JAX."""
+    calibration mode (``ops.layers.set_capture``).  ``ratio`` is the
+    CIFAR ShuffleNetV2's width plan (0.5, 1, 1.5 or 2; any other net,
+    ``imgnet/shufflenetv2`` among them, raises on a ratio other than 1).
+    ``image_size`` fixes AlexNet's fc1 width, which flax infers from the
+    first input (default: the dataset's ``INPUT_SIZE``).  InceptionV3 is
+    float32 only and takes no quantization argument, as in JAX."""
     model = _create(name, qbit, scales=scales, num_classes=num_classes,
                     frozen_weights=frozen_weights,
                     compute_dtype=compute_dtype, use_pallas=use_pallas,
@@ -92,7 +96,8 @@ def _create(name, qbit, *, scales, num_classes, frozen_weights,
             compute_dtype, use_pallas, ratio, image_size, generator):
     if ratio != 1 and name not in _SHUFFLENETS:
         raise ValueError(
-            f"ratio={ratio} is only supported by shufflenetv2 (got {name!r})")
+            f"ratio={ratio} is only supported by the CIFAR shufflenetv2 "
+            f"(got {name!r})")
     if name in _INCEPTIONS:
         from cnns_slfp_quantization_tpu_torch.models import inception_v3
 
@@ -123,6 +128,12 @@ def _create(name, qbit, *, scales, num_classes, frozen_weights,
         return shufflenetv2.ShuffleNetV2(
             scales=scales or calib.load_scales("shufflenetv2_cifar"),
             ratio=ratio, **common)
+    if name in _SHUFFLENET_IMGNET:
+        from cnns_slfp_quantization_tpu_torch.models import shufflenetv2
+
+        return shufflenetv2.ShuffleNetV2(
+            scales=scales or calib.load_scales("shufflenetv2_imgnet"),
+            imagenet=True, **common)
     if name in _VGGS:
         from cnns_slfp_quantization_tpu_torch.models import vgg16
 

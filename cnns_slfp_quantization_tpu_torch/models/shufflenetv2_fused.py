@@ -1,6 +1,8 @@
 """Fused SLFP8 ShuffleNetV2 inference executor (counterpart of the JAX
 ``models/shufflenetv2_fused.py::fused_apply``), over the same frozen (or
-packed) :class:`ShuffleNetV2` the module path serves.
+packed) :class:`ShuffleNetV2` the module path serves, in either of its
+forms: CIFAR's and the published ImageNet one (``imgnet/shufflenetv2``,
+which JAX does not have); every width is read from the weights.
 
 :func:`prepare` lays the model out once: BatchNorm folded with Ka*Kw into a
 per-channel ``scale``/``shift`` (``resnet50_fused.bn_fold``), uint8 codes
@@ -13,7 +15,9 @@ affine, then for the BNs the reference marks the SFP<4,4> layer-output
 quantize and ReLU, then the next conv's SLFP<3,4> input quantize:
 
   stem        K1 signed quantize -> 3x3 conv (cuDNN, f32 out) -> K3 (affine,
-              raw bf16, no ReLU)
+              raw bf16, no ReLU); the ImageNet form: the 3x3/s2 conv, K3
+              with ReLU, then ``max_pool2d`` 3x3/s2/p1, as the fused
+              ResNet-50's stem
   unit input  K1: one pass shared by both branches of a downsample unit
               when their Ka agree (else one per branch), the second half of
               the channels in a stride-1 unit
@@ -27,14 +31,24 @@ quantize and ReLU, then the next conv's SLFP<3,4> input quantize:
               f32 mean -> K1 -> f32 matmul -> ``(y + b') * kaw`` in bf16
 
 Per forward: K1 35 launches and K3 20 (38 and 20 when a downsample unit's
-two Ka differ).  Every quantize site JAX runs as ``quantize_act_pass``
-runs on K1 or, where JAX quantizes a bare affine output (``loq=False``),
-on K3, which computes the same ``act_bf16_bits(fma(y, s, t))`` in one
-pass.  The affine -> layer-output quantize -> ReLU chain of the other
-sites is XLA's fused elementwise work in JAX, not a Pallas kernel; here it
-runs as PyTorch ops (``affine_f32``, ``sfp.quantize_layerout``,
-``relu``).  The convolutions and matmuls take float32 tensors that hold
-bf16 values, under :func:`backend_flags`, as in :mod:`.resnet50_fused`.
+two Ka differ), in either form.  Every quantize site JAX runs as
+``quantize_act_pass`` runs on K1 or, where JAX quantizes a bare affine
+output (``loq=False``), on K3, which computes the same
+``act_bf16_bits(fma(y, s, t))`` in one pass.  The affine -> layer-output
+quantize -> ReLU chain of the other sites is XLA's fused elementwise work
+in JAX, not a Pallas kernel; here it runs as PyTorch ops (``affine_f32``,
+``sfp.quantize_layerout``, ``relu``).  The convolutions and matmuls take
+float32 tensors that hold bf16 values, under :func:`backend_flags`, as in
+:mod:`.resnet50_fused`.
+
+A forward marks its phases :data:`PHASES` (``FusedWeights.phases``, a
+``utils.profiling.StepPhases``): timing CUDA events that the engine's
+CUDA graph keeps as event-record nodes, so each replay times its own
+(the engine registers them after a recorded replay); an eager forward on
+the card records and registers them while spans record; on the CPU they
+are host spans then.  A recorded eager forward and a capture also count
+``shufflenet.posts_plain`` (the post sites run as plain ops, 36 a forward)
+and ``shufflenet.shuffles`` (the channel-shuffle copies, 16).
 
 Over a model axis :func:`shard_weights` keeps each rank's out-channel
 shards (every conv's weight and folded affine, the classifier's
@@ -51,6 +65,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cnns_slfp_quantization_tpu_torch.kernels import epilogue as k3
 from cnns_slfp_quantization_tpu_torch.kernels.epilogue import affine_f32
@@ -76,6 +91,12 @@ from cnns_slfp_quantization_tpu_torch.ops.backend import backend_flags
 from cnns_slfp_quantization_tpu_torch.ops.layers import relu
 from cnns_slfp_quantization_tpu_torch.parallel import comm
 from cnns_slfp_quantization_tpu_torch.parallel import mesh as mesh_lib
+from cnns_slfp_quantization_tpu_torch.utils import profiling
+
+# a forward's device phases, in stream order: the stem; the units of stages
+# 2, 3 and 4; conv5, the mean and the classifier
+PHASES = ("shufflenet.stem", "shufflenet.stage2", "shufflenet.stage3",
+          "shufflenet.stage4", "shufflenet.head")
 
 
 @dataclasses.dataclass
@@ -93,13 +114,16 @@ class Unit:
 
 @dataclasses.dataclass
 class FusedWeights:
-    stem: ConvKxK          # 3x3/s1/p1, OIHW channels_last
+    stem: ConvKxK          # 3x3/p1 (s1 CIFAR, s2 ImageNet), OIHW channels_last
+    stem_pool: bool        # ImageNet's stem: ReLU and the 3x3/s2 max pool
     units: list
     conv5: ConvKxK         # [Cin, 1024] float32 (bf16 values)
     fc_w: torch.Tensor     # [1024, classes] float32 (bf16 values)
     fc_b: torch.Tensor     # float32(b) * float32(1/kaw)
     kaw_fc: torch.Tensor   # float32 0-d
     recips: list           # recips[i] = 1/Ka as JAX computes it
+    # the forward's phases (PHASES); their events are this executor's own
+    phases: profiling.StepPhases
     # the mesh whose model axis the tensors are sharded over, and the group
     # the classifier's column shards are gathered over (shard_weights)
     mesh: Optional[object] = None
@@ -135,7 +159,7 @@ def prepare(model: ShuffleNetV2, *, device="cuda") -> FusedWeights:
                                         torch.from_numpy(t), recips))
 
     out = []
-    for name, ids, _, _, _, nonneg_in in units(model.ratio):
+    for name, ids, _, _, _, nonneg_in in units(model.ratio, model.imagenet):
         u = getattr(model, name)
         out.append(Unit(
             ids=ids, downsample=u.downsample, nonneg_in=nonneg_in,
@@ -151,12 +175,13 @@ def prepare(model: ShuffleNetV2, *, device="cuda") -> FusedWeights:
     fc_b = model.fc.bias.detach().cpu().numpy().astype(np.float32)
     return FusedWeights(
         stem=conv(model.pre_conv, model.pre_bn, pointwise=False),
-        units=out,
+        stem_pool=model.imagenet, units=out,
         conv5=conv(model.conv5, model.conv5_bn, pointwise=True),
         fc_w=_bf16_values(model.fc.weight).float().t().contiguous().to(
             device),
         fc_b=vec((fc_b * (np.float32(1) / kaw)).astype(np.float32)),
-        kaw_fc=torch.tensor(kaw, device=device), recips=recips)
+        kaw_fc=torch.tensor(kaw, device=device), recips=recips,
+        phases=profiling.StepPhases(PHASES))
 
 
 def fused_apply(fw: FusedWeights, x: torch.Tensor, *,
@@ -231,15 +256,29 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor) -> torch.Tensor:
                               q_dtype=f32, ftz=c.ftz)
         return q
 
-    # --- stem: 3x3/p1 conv + BN, no activation -----------------------------
-    y = _conv_f32(quant(x, 0, nonneg=False), fw.stem)
-    y, _ = k3.bn_epilogue(y, fw.stem.scale, fw.stem.shift, relu=False,
-                          ftz=fw.stem.ftz)
+    mark = fw.phases.marker(x.is_cuda)
+    posts = 0                    # post sites run as plain ops
 
-    # --- 16 units: y is the bf16 unit input --------------------------------
+    # --- stem: 3x3/p1 conv + BN; no activation (CIFAR), or ReLU and the
+    # 3x3/s2/p1 max pool (ImageNet) ---------------------------------------
+    if mark:
+        mark(0)
+    y = _conv_f32(quant(x, 0, nonneg=False), fw.stem)
+    y, _ = k3.bn_epilogue(y, fw.stem.scale, fw.stem.shift,
+                          relu=fw.stem_pool, ftz=fw.stem.ftz)
+    if fw.stem_pool:
+        y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, 1).permute(
+            0, 2, 3, 1).contiguous()
+
+    # --- 16 units: y is the bf16 unit input; a stage starts at its
+    # downsample unit -------------------------------------------------------
+    stage = 0
     for u in fw.units:
         ids = u.ids
         if u.downsample:
+            stage += 1
+            if mark:
+                mark(stage)
             short_in = None
             rq = quant(y, ids[0], u.nonneg_in)
             sq = rq if u.shared else quant(y, ids[3], u.nonneg_in)
@@ -250,9 +289,11 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor) -> torch.Tensor:
         r = quant(_post_loq(_mm(rq, u.res1), u.res1), ids[1])
         r = quant_post(_conv_f32(r, u.res2), u.res2, ids[2])
         r = _post_loq(_mm(r, u.res3), u.res3).to(bf16)
+        posts += 2
         if u.downsample:
             s = quant_post(_conv_f32(sq, u.short1), u.short1, ids[4])
             s = _post_loq(_mm(s, u.short2), u.short2).to(bf16)
+            posts += 1
         else:
             s = short_in
         # concat [s, r] then the channel shuffle of 2 groups: channel j of
@@ -261,10 +302,17 @@ def _fused_apply(fw: FusedWeights, x: torch.Tensor) -> torch.Tensor:
                                                  2 * r.shape[-1])
 
     # --- conv5 + BN + layer-output quantize + ReLU, mean, classifier -------
+    if mark:
+        mark(len(PHASES) - 1)
     y = _post_loq(_mm(quant(y, CONV5_ID), fw.conv5), fw.conv5).to(bf16)
+    posts += 1
     xa = torch.mean(y.to(f32), dim=(1, 2))
     yl = ((_mm_f32(quant(xa, FC_ID), fw.fc_w) + fw.fc_b)
           * fw.kaw_fc).to(bf16)
     if fw.fc_group is not None:      # the rank's classes: gather them
         yl = comm.all_gather_cat(yl, -1, fw.fc_group)
+    if mark:
+        mark(len(PHASES))
+        profiling.count("shufflenet.posts_plain", posts)
+        profiling.count("shufflenet.shuffles", len(fw.units))
     return yl

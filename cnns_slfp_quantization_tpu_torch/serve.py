@@ -8,7 +8,8 @@
 
 qbit 8 freezes the weights once (bf16 values, or uint8 SLFP<3,4> codes with
 ``pack_weights=True``) and serves them either through the fused executor
-(``fused``; ResNet-50, the ReLU MobileNetV1 variants and ShuffleNetV2, the
+(``fused``; ResNet-50, the ReLU MobileNetV1 variants and ShuffleNetV2, CIFAR
+and ImageNet (``imgnet/shufflenetv2``, a name of the port's own), the
 default there) or through the module path
 (``create_model(..., frozen_weights=True, use_pallas=...)``), where
 ``use_pallas`` routes the 1x1 convs and dense layers to K4 as in JAX.
@@ -46,7 +47,11 @@ or ``engine.eager``, counts ``engine.requests``, and on the card times the
 device's wait since the engine's previous request, where both were
 recorded in one stretch (``engine.wait``: from that request's last stream
 operation to this one's first, between CUDA events, so the caller's copy
-to the host and its turn-around lie inside).  The build always records ``engine.build`` with ``model.create``,
+to the host and its turn-around lie inside).  An executor with device
+phases (ShuffleNetV2's ``shufflenet.*``, ``FusedWeights.phases``) records
+their events inside the graph, and each recorded graphed request registers
+its replay's (``StepPhases.pend``), as ``GraphedTrainStep`` does for
+``train.*``.  The build always records ``engine.build`` with ``model.create``,
 ``engine.load``, ``engine.freeze`` and ``engine.prepare``.
 
 ``mesh=`` (``parallel.make_mesh``) serves over a ``("data", "model")``
@@ -88,6 +93,7 @@ FUSABLE = {
     "imgnet/mobilenetv1": "mobilenetv1_fused",
     "shufflenetv2": "shufflenetv2_fused",
     "cifar/shufflenetv2": "shufflenetv2_fused",
+    "imgnet/shufflenetv2": "shufflenetv2_fused",
 }
 FLOAT_ONLY = ("inceptionv3", "imgnet/inceptionv3")
 
@@ -224,6 +230,9 @@ class InferenceEngine:
         self.input_shape = (local, self.image_size, self.image_size, 3)
         self.graphed = self.device.type == "cuda" and model_axis == 1
         self._graph = None        # captured at the first call (graphed)
+        # the executor's device phases, registered after each recorded replay
+        self._phases = (getattr(self.executor, "phases", None) if fused
+                        else None)
         # the last recorded request's last event, and its stretch (epoch)
         self._tail = None
 
@@ -264,7 +273,11 @@ class InferenceEngine:
                 first = torch.cuda.Event(enable_timing=True)
                 first.record()
             if self.graphed:
+                if rec and self._phases is not None:
+                    profiling.poll()    # the last replay's phases, if passed
                 y = self._dispatch(x)   # engine.copy_in, engine.replay
+                if rec and self._phases is not None:
+                    self._phases.pend()
                 with profiling.span_if(rec, "engine.clone"), \
                         torch.inference_mode():
                     y = y.clone()

@@ -198,10 +198,16 @@ JAX_NAMES = [
     "resnet_stl", "resnet_swish", "imgnet/resnet_stl", "imgnet/resnet_swish",
     "alexnet", "imgnet/alexnet", "squeezenet", "imgnet/squeezenet",
     "inceptionv3", "imgnet/inceptionv3"]
+# the port's names that JAX's registry does not have: ShuffleNet V2 1.0x in
+# its published ImageNet form
+PORT_ONLY = {"imgnet/shufflenetv2"}
+
+
 def test_model_names_are_jax_names():
     assert tmodels.MODEL_NAMES == jmodels.MODEL_NAMES
     assert tmodels.INPUT_SIZE == jmodels.INPUT_SIZE
-    assert set(tmodels.NAMES) == set(JAX_NAMES)
+    assert set(tmodels.NAMES) == set(JAX_NAMES) | PORT_ONLY
+    assert not PORT_ONLY & set(JAX_NAMES)
     for create in (jmodels.create_model, tmodels.create_model):
         with pytest.raises(ValueError, match="unknown"):
             create("vgg19")
